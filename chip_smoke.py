@@ -22,7 +22,28 @@ Phases, each printed with its wall time:
    just after; it must reach 1202 steps unstalled and equal the CPU run.
    ``paper-fabric`` and ``leaf-spine`` run under the same policy too; each
    of the three prints its steps/s and, from a profiler trace of a second
-   run, the device's busy time and idle share.
+   run, the device's busy time and idle share;
+6. the flash-attention kernel against its plain version on the card: the
+   reference's six sweep shapes (2e-5 in float32 with TF32 off, 2e-2 in
+   bf16), the serving path's shapes (qwen3-4b heads, q [1,S,32,128], k/v
+   [1,S,8,128], bf16, causal) at S = 32, 1000 (ragged) and 2048, and a
+   causal case with q_offset > 0; at S = 32 and S = 2048 the kernel's,
+   the plain version's and ``scaled_dot_product_attention``'s times (the
+   yardstick, never called by the port) beside the bound, as the device
+   time of one call (``fenced_ms`` less the reading of an empty call) and
+   per call by CUDA events over back-to-back calls;
+7. the LM serving path at full width: qwen3-4b's published config (36
+   layers, d_model 2560, 4.41 B parameters, random bf16 weights from a
+   seeded generator on the card) through ``repro_torch.launch.serve``
+   with the reference launcher's traffic (16 requests, prompts of 4-31
+   tokens, 4 slots, max_len 256, max_new 16) and the flash kernel's launch
+   count reset just before and read just after: 16 answers of 17 tokens
+   and 36 x 16 = 576 launches; then one 2048-token prompt through
+   ``lm_prefill`` with the kernel and with the plain attention, whose
+   last-position logits must agree; tok/s, prefill time and peak device
+   memory; the device time of one decode tick from a CUDA graph of it
+   replayed between two events, beside its kernels' summed time from a
+   profiler trace.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and last the line ``{"ok": true, "device": {...}}``.  Any failure
@@ -32,6 +53,7 @@ result.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import statistics
@@ -41,16 +63,32 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 outside the
-# tensor cores — min-plus has no tensor-core form
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 outside the
+# tensor cores (min-plus has no tensor-core form) and dense bf16 on the
+# tensor cores (attention's two products have one)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12
 
 # float tolerance between the CUDA and CPU runs of the engine (int and bool
 # leaves and the step count must be equal)
 RTOL = 1e-6
 
 PROFILE_STEPS = {"paper-fabric": 21, "leaf-spine": 45, "leaf-spine-xl": 1202}
+
+# flash attention against its plain version: the reference's tolerances
+# (tests/test_kernels.py), float32 with TF32 off and bf16
+FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+# the serving run: the reference launcher's defaults (src/repro/launch/serve.py)
+SERVE_ARGV = ["--arch", "qwen3-4b", "--requests", "16", "--slots", "4",
+              "--max-len", "256", "--max-new", "16"]
+LONG_PROMPT = 2048
+# the long prefill's last-position logits, kernel against plain attention,
+# as a share of the largest |logit|: the two attentions round differently
+# in bf16 (the kernel keeps P in float32, the plain version casts the
+# weights to bf16 before P V), and 36 bf16 layers carry that on
+LOGIT_TOL = 0.05
 
 
 class SmokeFailure(AssertionError):
@@ -109,16 +147,94 @@ def cuda_ms(fn, warmup: int = 5, repeats: int = 15, inner: int = 20):
 def device_ms(fn, calls: int = 1):
     """Summed device time (ms) of every kernel ``calls`` runs of ``fn``
     launch, per run, from a ``torch.profiler`` trace of the card; ``None``
-    when the trace holds no device time.  ``fn`` must be warm already."""
+    when the trace holds no device time.  ``fn`` must be warm already.
+    After phase 5's long traces the sums for one flash launch came out
+    short (0.56 ms for a 2.2 ms kernel) while a fresh process's trace
+    agreed with CUDA events, so the flash kernel's own time comes from
+    ``fenced_ms`` and the decode tick's from ``graph_ms``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     total_us = sum(e.self_device_time_total for e in prof.key_averages())
     return total_us / 1e3 / calls if total_us > 0 else None
+
+
+def fenced_ms(fn, samples: int = 10):
+    """Median device time (ms) of one call of ``fn``, host gaps excluded:
+    a spin kernel (``torch.cuda._sleep``) holds the stream for three times
+    the host's enqueue time of one call, so the whole call is queued behind
+    it before the first of the two CUDA events around the call is reached.
+    ``fn`` must be warm and must not wait for the device.  Only for a call
+    of a few launches: thousands of launches fill the queue of pending
+    launches behind the spin kernel and the host's issue time leaks in.
+    The reading carries the floor of the events themselves, which
+    ``fenced_ms(lambda: None)`` measures."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(1_000_000)
+    b.record()
+    b.synchronize()
+    cycles_per_ms = 1e6 / a.elapsed_time(b)
+    spin = int(max(3 * host_ms, 0.5) * cycles_per_ms)
+    out = []
+    for _ in range(samples):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out)
+
+
+def graph_ms(fn, samples: int = 5):
+    """Device time (ms) of one call of ``fn`` with no host in it: ``fn``
+    is captured once in a CUDA graph, and the graph, one launch on the
+    host, is timed by ``fenced_ms``.  Also returns the per-call time of
+    back-to-back replays.  ``fn`` must be warm, and capturable: no host
+    sync and no copy from the host."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    one = fenced_ms(graph.replay, samples=samples)
+    back_to_back = cuda_ms(graph.replay, warmup=1, repeats=samples, inner=5)
+    del graph
+    torch.cuda.synchronize()
+    return one, back_to_back
+
+
+def attention_work(b, sq, skv, h, kv, dh, causal, q_offset, itemsize):
+    """(bytes, operations) attention must move and do on these inputs:
+    q, k, v read once and o written once; 4 * Dh operations (two products)
+    for every (query, key) pair the mask keeps."""
+    if causal:
+        pairs = sum(max(0, min(skv, i + q_offset + 1)) for i in range(sq))
+    else:
+        pairs = sq * skv
+    nbytes = itemsize * dh * b * (2 * sq * h + 2 * skv * kv)
+    return nbytes, 4 * b * h * dh * pairs
 
 
 def states_match(gpu, cpu, label: str) -> None:
@@ -148,9 +264,15 @@ def main() -> int:
     from repro_torch.core.routing import hop_distances_np
     from repro_torch.kernels.tropical_apsp import (apsp, minplus_matmul,
                                                    minplus_matmul_ref)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     naive_attention)
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.tropical_apsp import kernel as minplus_kernel
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.models import layers as lm_layers
     from repro_torch.scenarios import get_scenario
 
+    kernels = (minplus_kernel, fa_kernel)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -163,10 +285,18 @@ def main() -> int:
               f"python {sys.version.split()[0]}")
 
     with phase("2 kernel build (nvcc, sm_90a)"):
-        t0 = time.perf_counter()
-        minplus_kernel.build()
-        build_s = time.perf_counter() - t0
+        def timed_build(kern):
+            t0 = time.perf_counter()
+            kern.build()
+            return time.perf_counter() - t0
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            builds = {name: pool.submit(timed_build, kern) for name, kern in
+                      (("minplus", minplus_kernel), ("flash", fa_kernel))}
+            build_s = builds["minplus"].result()
+            fa_build_s = builds["flash"].result()
         print(f"minplus: built and loaded in {build_s:.3f} s")
+        print(f"flash attention: built and loaded in {fa_build_s:.3f} s "
+              f"(both nvcc runs at once)")
 
     scenarios = ("paper-fabric", "leaf-spine", "fat-tree", "canonical-tree",
                  "leaf-spine-xl")
@@ -262,7 +392,8 @@ def main() -> int:
             if main_path:
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-                minplus_kernel.reset_launch_count()
+                for kern in kernels:
+                    kern.reset_launch_count()
             t_main = time.perf_counter()
             exp = Experiment(name, profile, device="cuda")
             t0 = time.perf_counter()
@@ -272,6 +403,7 @@ def main() -> int:
             if main_path:
                 main_s = time.perf_counter() - t_main
                 launches = minplus_kernel.launch_count()
+                xl_fa_launches = fa_kernel.launch_count()
                 peak = torch.cuda.max_memory_allocated()
             steps = int(res.states.steps[0])
             check(not bool(res.states.stalled[0]), f"{name} stalled")
@@ -290,10 +422,178 @@ def main() -> int:
             states_match(res.states, cpu.states, name)
             print(f"{name}: final state equals the CPU run")
         check(launches > 0, "the main path launched no minplus kernel")
+        check(xl_fa_launches == 0, "the simulator launched flash attention")
         print(f"leaf-spine-xl main path: {main_s:.3f} s from Experiment() "
               f"to the final state, minplus launches {launches}, peak "
               f"device memory {peak / 2**20:.1f} MiB")
 
+    with phase("6 flash attention against its plain version"):
+        gen = torch.Generator(device="cpu").manual_seed(0)
+        fa_shapes = [  # b, sq, skv, h, kv, dh, causal, q_offset, dtype
+            # the reference's sweep (tests/test_kernels.py)
+            (2, 64, 64, 4, 2, 32, True, 0, torch.float32),
+            (1, 100, 100, 4, 4, 16, True, 0, torch.float32),
+            (2, 1, 40, 4, 2, 16, False, 0, torch.float32),
+            (1, 128, 256, 8, 2, 64, True, 128, torch.float32),
+            (2, 64, 64, 4, 1, 128, True, 0, torch.bfloat16),
+            (1, 48, 48, 2, 2, 64, False, 0, torch.bfloat16),
+            # the serving path: qwen3-4b's heads, causal, q_offset 0
+            (1, 32, 32, 32, 8, 128, True, 0, torch.bfloat16),
+            (1, 1000, 1000, 32, 8, 128, True, 0, torch.bfloat16),
+            (1, LONG_PROMPT, LONG_PROMPT, 32, 8, 128, True, 0,
+             torch.bfloat16),
+            # a chunk of queries after 1000 cached positions; float32 too
+            (1, 500, 1500, 32, 8, 128, True, 1000, torch.bfloat16),
+            (1, 1000, 1000, 32, 8, 128, True, 0, torch.float32),
+        ]
+        fa_err = {}
+        fa_inputs = {}
+        for b, sq, skv, h, kv, dh, causal, off, dt in fa_shapes:
+            q = torch.randn(b, sq, h, dh, generator=gen).to(dt).to(dev)
+            k = torch.randn(b, skv, kv, dh, generator=gen).to(dt).to(dev)
+            v = torch.randn(b, skv, kv, dh, generator=gen).to(dt).to(dev)
+            got = flash_attention(q, k, v, causal=causal, q_offset=off)
+            torch.cuda.synchronize()
+            want = naive_attention(q, k, v, causal=causal, q_offset=off)
+            tol = FA_TOL[str(dt).split(".")[-1]]
+            err = float((got.float() - want.float()).abs().max())
+            label = (f"flash {dt} b={b} sq={sq} skv={skv} h={h} kv={kv} "
+                     f"dh={dh} causal={causal} q_offset={off}")
+            check(bool(torch.isfinite(got).all()), f"{label}: not finite")
+            check(torch.allclose(got.float(), want.float(), rtol=tol,
+                                 atol=tol),
+                  f"{label}: max |kernel - plain| {err} > {tol}")
+            print(f"{label}: max abs err {err} (tol {tol})")
+            if dt == torch.bfloat16 and sq == skv and h == 32 and causal:
+                fa_err[sq] = err
+                if sq in (32, LONG_PROMPT):
+                    fa_inputs[sq] = (q, k, v)
+        fa_times = {}
+        floor_ms = fenced_ms(lambda: None)
+        print(f"fenced_ms of an empty call (the events' floor, taken off "
+              f"every fenced time below): {floor_ms} ms")
+        for s_len, (q, k, v) in sorted(fa_inputs.items()):
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            fns = {
+                "kernel": lambda: flash_attention(q, k, v, causal=True),
+                "plain": lambda: naive_attention(q, k, v, causal=True),
+                "sdpa": lambda: torch.nn.functional
+                .scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True),
+            }
+            t = {}
+            for name, fn in fns.items():
+                t[f"{name}_call_ms"] = cuda_ms(fn)
+                t[f"{name}_fenced_ms"] = fenced_ms(fn)
+                t[f"{name}_ms"] = t[f"{name}_fenced_ms"] - floor_ms
+            nbytes, ops = attention_work(1, s_len, s_len, 32, 8, 128, True,
+                                         0, 2)
+            t["bound_bytes_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+            t["bound_ops_ms"] = ops / PEAK_BF16_OPS_PER_S * 1e3
+            t["bound_ms"] = max(t["bound_bytes_ms"], t["bound_ops_ms"])
+            t["bytes"], t["operations"] = nbytes, ops
+            fa_times[s_len] = t
+            print(f"flash S={s_len}: device time per call: kernel "
+                  f"{t['kernel_ms']} ms, plain {t['plain_ms']} ms, sdpa "
+                  f"{t['sdpa_ms']} ms; per call through the wrapper (CUDA "
+                  f"events, back to back): kernel {t['kernel_call_ms']:.6f}"
+                  f" ms, plain {t['plain_call_ms']:.6f} ms, sdpa "
+                  f"{t['sdpa_call_ms']:.6f} ms; bound {t['bound_ms']:.6f} "
+                  f"ms ({nbytes} bytes, {ops} operations)")
+
+    with phase("7 LM serving at full width on CUDA (qwen3-4b)"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in kernels:
+            kern.reset_launch_count()
+        t_main = time.perf_counter()
+        served = serve_launch.run(SERVE_ARGV)
+        serve_main_s = time.perf_counter() - t_main
+        fa_launches = fa_kernel.launch_count()
+        check(minplus_kernel.launch_count() == 0,
+              "the serving path launched the min-plus kernel")
+        serve_peak = torch.cuda.max_memory_allocated()
+        loop = served.loop
+        cfg = loop.api.cfg
+        n_params = sum(p.numel() for p in loop.params.parameters())
+        print(f"[serve] {len(served.results)} requests, {served.tokens} "
+              f"tokens, {served.tokens / served.seconds:.1f} tok/s "
+              f"({loop.slots} slots)")
+        check(len(served.results) == 16, "serve: not every request answered")
+        check(sorted(r.rid for r in served.results) == list(range(16)),
+              "serve: answers do not match the requests")
+        for r in served.results:
+            check(len(r.tokens) == 17 and r.decode_steps == 16,
+                  f"serve: request {r.rid} has {len(r.tokens)} tokens")
+            check(all(0 <= t < cfg.vocab for t in r.tokens),
+                  f"serve: request {r.rid} has a token out of the vocab")
+        check(fa_launches == cfg.n_layers * 16,
+              f"serve: {fa_launches} flash launches, expected "
+              f"{cfg.n_layers} layers x 16 prefills")
+        tok_s = served.tokens / served.seconds
+        served_s, served_tokens = served.seconds, served.tokens
+        print(f"qwen3-4b ({n_params} parameters, {cfg.dtype}): "
+              f"{serve_main_s:.3f} s from the launcher's start to the last "
+              f"token ({served.seconds:.3f} s serving), {tok_s:.1f} tok/s, "
+              f"flash launches {fa_launches}, peak device memory "
+              f"{serve_peak / 2**30:.3f} GiB")
+
+        # where a serving tick goes: one decode step of every slot (CUDA
+        # events, back to back), its device time from a CUDA graph of it,
+        # its kernels' summed time from a profiler trace, and the float32
+        # unembedding inside it against a bf16 product
+        api, params = loop.api, loop.params
+        step_tokens = torch.zeros((loop.slots, 1), dtype=torch.int32,
+                                  device=dev)
+        tick = lambda: api.decode_step(params, step_tokens, loop.cache)
+        tick_ms = cuda_ms(tick, warmup=2, repeats=5, inner=5)
+        tick_graph_ms, tick_graph_call_ms = graph_ms(tick)
+        tick_kernels_ms = device_ms(tick)
+        xh = torch.randn(loop.slots, 1, cfg.d_model, generator=gen).to(
+            cfg.dtype).to(dev)
+        unembed_ms = cuda_ms(lambda: lm_layers.unembed(
+            params.unembed, params.embed, xh, cfg))
+        unembed_bf16_ms = cuda_ms(lambda: xh @ params.unembed.w)
+        print(f"decode tick ({loop.slots} slots): {tick_ms:.6f} ms per "
+              f"tick; as a CUDA graph: device time {tick_graph_ms} ms, "
+              f"{tick_graph_call_ms:.6f} ms per replay back to back; its "
+              f"kernels' summed time (profiler) {tick_kernels_ms} ms; float32 "
+              f"unembedding {unembed_ms:.6f} ms per call (a bf16 product "
+              f"would take {unembed_bf16_ms:.6f} ms)")
+
+        # one long prompt: the kernel against the plain attention
+        prompt = np.random.RandomState(0).randint(1, cfg.vocab, LONG_PROMPT)
+        batch = {"tokens": torch.from_numpy(prompt[None]).to(dev)}
+        logits, prefill_ms = {}, {}
+        for backend in ("kernel", "naive", "kernel", "naive"):
+            cache = api.init_cache(1, 2 * LONG_PROMPT, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, cache = api.prefill(params, batch, cache, backend=backend)
+            torch.cuda.synchronize()
+            prefill_ms.setdefault(backend, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            logits[backend] = out[0, -1].float()
+            del cache
+        a, b_ = logits["kernel"], logits["naive"]
+        check(bool(torch.isfinite(a).all()), "long prefill: logits not finite")
+        diff = float((a - b_).abs().max())
+        scale = float(b_.abs().max())
+        cos = float(torch.nn.functional.cosine_similarity(a, b_, dim=0))
+        top_equal = int(a.argmax()) == int(b_.argmax())
+        print(f"prefill of {LONG_PROMPT} tokens: kernel {prefill_ms['kernel']}"
+              f" ms, plain attention {prefill_ms['naive']} ms (host clock, "
+              f"synchronised); last-position logits: max |kernel - plain| "
+              f"{diff} of max |logit| {scale}, cosine {cos}, same argmax "
+              f"{top_equal}")
+        check(diff <= LOGIT_TOL * scale,
+              f"long prefill: logits differ by {diff} > {LOGIT_TOL} x "
+              f"{scale}")
+        long_peak = torch.cuda.max_memory_allocated()
+        print(f"peak device memory over phase 7: {long_peak / 2**30:.3f} GiB")
+        del loop, served, api, params, logits
+
+    t_fa = fa_times[LONG_PROMPT]
     print(json.dumps({"kernels": [{
         "name": "minplus_f32",
         "route": "cuda",
@@ -302,8 +602,8 @@ def main() -> int:
         "shape": [n, n, n],
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": kernel_ms if kernel_ms is not None else kernel_call_ms,
-        "plain_ms": plain_ms if plain_ms is not None else plain_call_ms,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
         "call_ms": kernel_call_ms,
         "plain_call_ms": plain_call_ms,
         "bound_ms": max(bound_bytes_ms, bound_ops_ms),
@@ -311,7 +611,43 @@ def main() -> int:
                      else "operations"),
         "library_ms": None,
         "build_s": build_s,
-    }], "steps_per_s": rates, "device_idle_share": idle}))
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:25",
+        "shape": {"q": [1, LONG_PROMPT, 32, 128],
+                  "kv": [1, LONG_PROMPT, 8, 128], "dtype": "bfloat16",
+                  "causal": True},
+        "launches": fa_launches,
+        "max_abs_err": fa_err[LONG_PROMPT],
+        "ms": t_fa["kernel_ms"],
+        "plain_ms": t_fa["plain_ms"],
+        "call_ms": t_fa["kernel_call_ms"],
+        "plain_call_ms": t_fa["plain_call_ms"],
+        "bound_ms": t_fa["bound_ms"],
+        "bound_by": ("bytes" if t_fa["bound_bytes_ms"] > t_fa["bound_ops_ms"]
+                     else "operations"),
+        "library_ms": t_fa["sdpa_ms"],
+        "library_call_ms": t_fa["sdpa_call_ms"],
+        "fenced_floor_ms": floor_ms,
+        "build_s": fa_build_s,
+        "serve_bucket": {"S": 32, "max_abs_err": fa_err[32],
+                         **fa_times[32]},
+    }], "steps_per_s": rates, "device_idle_share": idle,
+        "serve": {"arch": "qwen3-4b", "tok_s": tok_s,
+                  "seconds": served_s, "tokens": served_tokens,
+                  "launcher_s": serve_main_s,
+                  "prefill_ms": prefill_ms,
+                  "peak_gib": serve_peak / 2**30,
+                  "tick_ms": tick_ms, "tick_graph_ms": tick_graph_ms,
+                  "tick_graph_call_ms": tick_graph_call_ms,
+                  "tick_kernels_ms": tick_kernels_ms,
+                  "unembed_f32_ms": unembed_ms,
+                  "unembed_bf16_ms": unembed_bf16_ms,
+                  "long_prefill_peak_gib": long_peak / 2**30,
+                  "long_logits_max_abs_diff": diff,
+                  "long_logits_max_abs": scale}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,0 +1,18 @@
+"""yi-6b [dense]: 32L d_model=4096 32H (GQA kv=4) d_ff=11008 vocab=64000.
+
+llama-architecture GQA. [arXiv:2403.04652; hf-verified tier]
+"""
+from ..models.layers import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-6b", family="dense",
+    n_layers=32, d_model=4096, n_heads=32, n_kv=4, d_head=128,
+    d_ff=11008, vocab=64000, rope_theta=5e6,
+)
+
+
+def smoke_config() -> ModelConfig:
+    return ModelConfig(
+        name="yi-6b-smoke", family="dense",
+        n_layers=2, d_model=64, n_heads=4, n_kv=1, d_head=16,
+        d_ff=128, vocab=256)

@@ -83,8 +83,8 @@ def test_unported_axes_raise():
 
 
 def test_port_imports_no_jax_and_no_repro():
-    """Import every repro_torch module in a fresh interpreter: neither jax
-    nor any repro module may load."""
+    """Import every repro_torch module in a fresh interpreter: neither jax,
+    ml_dtypes nor any repro module may load."""
     code = (
         "import importlib, json, pkgutil, sys\n"
         "import repro_torch\n"
@@ -92,8 +92,8 @@ def test_port_imports_no_jax_and_no_repro():
         "    repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
-        "             or m.startswith(('jax.', 'jaxlib'))\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes')\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'ml_dtypes.'))\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(json.dumps({'modules': names, 'bad': bad}))\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
@@ -102,6 +102,8 @@ def test_port_imports_no_jax_and_no_repro():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.core.engine" in report["modules"]
     assert "repro_torch.kernels.tropical_apsp.kernel" in report["modules"]
+    assert "repro_torch.kernels.flash_attention.kernel" in report["modules"]
+    assert "repro_torch.launch.serve" in report["modules"]
     assert report["bad"] == []
 
 
@@ -120,7 +122,7 @@ def test_chip_smoke_and_port_sources_import_no_jax():
              *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
     for f in files:
         roots = _imported_roots(f)
-        assert not roots & {"jax", "jaxlib", "repro"}, f
+        assert not roots & {"jax", "jaxlib", "ml_dtypes", "repro"}, f
 
 
 def test_chip_smoke_alone_fails(tmp_path):
