@@ -43,7 +43,23 @@ Phases, each printed with its wall time:
    last-position logits must agree; tok/s, prefill time and peak device
    memory; the device time of one decode tick from a CUDA graph of it
    replayed between two events, beside its kernels' summed time from a
-   profiler trace.
+   profiler trace;
+8. the Mamba serving path at full width: both selective-scan entry points
+   against their plain versions on the card (rtol 1e-4, atol 1e-5, the
+   reference's own) at the reference's sweep shapes and at falcon-mamba-7b's
+   (the serving bucket [1,32,8192,16], a decode tick [4,1,8192,16] from a
+   nonzero state, the 2048-token prefill, and the Pallas-contract entry at
+   [1,2048,8192,16]), with their device times (``fenced_ms`` less the floor;
+   the plain versions as a CUDA graph) beside the bound; then, with phase
+   7's model freed, falcon-mamba-7b's published config (64 layers,
+   d_model 4096, d_inner 8192, N 16, 7.27 B parameters, random bf16
+   weights from a seeded generator on the card) through
+   ``repro_torch.launch.serve`` with the same traffic as phase 7 and every
+   kernel's launch count reset just before and read just after: 16 answers
+   of 17 tokens and 64 x (16 prefills + 64 ticks) = 5120 scan launches;
+   tok/s, the decode tick through Python and as a CUDA graph; a 2048-token
+   prefill through the kernel against the chunked scan, whose
+   last-position logits must agree; and peak device memory.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and last the line ``{"ok": true, "device": {...}}``.  Any failure
@@ -54,6 +70,7 @@ result.
 from __future__ import annotations
 
 import concurrent.futures
+import gc
 import json
 import os
 import statistics
@@ -65,10 +82,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 outside the
 # tensor cores (min-plus has no tensor-core form) and dense bf16 on the
-# tensor cores (attention's two products have one)
+# tensor cores (attention's two products have one); exp on the
+# special-function units: 16 results a clock on each of 132 SMs at the
+# 1.98 GHz boost clock (CUDA programming guide's throughput table, cc 9.0)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 PEAK_BF16_OPS_PER_S = 989e12
+PEAK_SFU_PER_S = 132 * 16 * 1.98e9
 
 # float tolerance between the CUDA and CPU runs of the engine (int and bool
 # leaves and the step count must be equal)
@@ -89,6 +109,22 @@ LONG_PROMPT = 2048
 # in bf16 (the kernel keeps P in float32, the plain version casts the
 # weights to bf16 before P V), and 36 bf16 layers carry that on
 LOGIT_TOL = 0.05
+
+# phase 8: falcon-mamba-7b with the reference launcher's traffic (64 decode
+# ticks: 16 requests of 16 steps over 4 slots, refilled four at a time)
+MAMBA_ARGV = ["--arch", "falcon-mamba-7b", "--requests", "16", "--slots",
+              "4", "--max-len", "256", "--max-new", "16"]
+MAMBA_PARAMS = 7_272_665_088
+MAMBA_TICKS = 64
+# the selective scan against its plain versions: the reference's tolerance
+# for its kernel against its oracle (tests/test_kernels.py); the sums run
+# in other orders (a sequential loop against a Hillis-Steele scan)
+SCAN_TOL = dict(rtol=1e-4, atol=1e-5)
+# the 2048-token prefill's last-position logits, kernel against chunked
+# scan, as a share of the largest |logit|: the two scans differ only in
+# float32 summation order, but each block's output is rounded to bf16, so
+# a rare one-ulp flip carries through 64 bf16 layers, as phase 7's does
+MAMBA_LOGIT_TOL = 0.05
 
 
 class SmokeFailure(AssertionError):
@@ -237,6 +273,109 @@ def attention_work(b, sq, skv, h, kv, dh, causal, q_offset, itemsize):
     return nbytes, 4 * b * h * dh * pairs
 
 
+def scan_work(b, s, d, n, fused: bool):
+    """(bytes, float32 operations, exps) of one selective scan: each input
+    read once and each output written once; per (t, d, n) the FMA of the
+    recurrence (2), h * c and its share of the N-lane sum (2), and for the
+    fused entry dt * A, (dt * x) * B (2 more) and one exp, plus dt * x per
+    (t, d)."""
+    if fused:
+        nbytes = 4 * (3 * b * s * d + 2 * b * s * n + d * n + 2 * b * d * n)
+        return nbytes, 6 * b * s * d * n + b * s * d, b * s * d * n
+    return 4 * (2 * b * s * d * n + b * s * n + b * s * d), \
+        4 * b * s * d * n, 0
+
+
+def bound(nbytes, ops, exps=0):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    HBM bandwidth and the operations over their peak rate."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = max(ops / PEAK_F32_OPS_PER_S, exps / PEAK_SFU_PER_S) * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def serve_run(serve_launch, argv, kernels, label):
+    """The launcher at full width with every kernel's launch count reset
+    just before (the caller reads them just after): 16 answers of 17
+    tokens, each in the vocabulary.  Returns (run, seconds from the
+    launcher's start, peak device bytes)."""
+    import torch
+    for kern in kernels:
+        kern.reset_launch_count()
+    t_main = time.perf_counter()
+    served = serve_launch.run(argv)
+    main_s = time.perf_counter() - t_main
+    peak = torch.cuda.max_memory_allocated()
+    loop = served.loop
+    print(f"[serve] {len(served.results)} requests, {served.tokens} "
+          f"tokens, {served.tokens / served.seconds:.1f} tok/s "
+          f"({loop.slots} slots)")
+    check(sorted(r.rid for r in served.results) == list(range(16)),
+          f"{label}: answers do not match the requests")
+    for r in served.results:
+        check(len(r.tokens) == 17 and r.decode_steps == 16,
+              f"{label}: request {r.rid} has {len(r.tokens)} tokens")
+        check(all(0 <= t < loop.api.cfg.vocab for t in r.tokens),
+              f"{label}: request {r.rid} has a token out of the vocab")
+    return served, main_s, peak
+
+
+def time_tick(loop) -> dict:
+    """One decode step of every slot: per tick through Python (CUDA
+    events, back to back), its device time as a CUDA graph and per replay
+    back to back, and its kernels' summed time from a profiler trace."""
+    import torch
+    api, params = loop.api, loop.params
+    step_tokens = torch.zeros((loop.slots, 1), dtype=torch.int32,
+                              device=loop.device)
+    tick = lambda: api.decode_step(params, step_tokens, loop.cache)
+    t = {"tick_ms": cuda_ms(tick, warmup=2, repeats=5, inner=5)}
+    t["tick_graph_ms"], t["tick_graph_call_ms"] = graph_ms(tick)
+    t["tick_kernels_ms"] = device_ms(tick)
+    print(f"decode tick ({loop.slots} slots): {t['tick_ms']:.6f} ms per "
+          f"tick; as a CUDA graph: device time {t['tick_graph_ms']} ms, "
+          f"{t['tick_graph_call_ms']:.6f} ms per replay back to back; its "
+          f"kernels' summed time (profiler) {t['tick_kernels_ms']} ms")
+    return t
+
+
+def long_prefill(loop, plain: str, tol: float) -> dict:
+    """One LONG_PROMPT-token prompt through the prefill with the kernel
+    and with the ``plain`` backend, in turns; their last-position logits
+    must agree within ``tol`` of the largest |logit|."""
+    import numpy as np
+    import torch
+    api, params, dev = loop.api, loop.params, loop.device
+    prompt = np.random.RandomState(0).randint(1, api.cfg.vocab, LONG_PROMPT)
+    batch = {"tokens": torch.from_numpy(prompt[None]).to(dev)}
+    logits, prefill_ms = {}, {}
+    for backend in ("kernel", plain, "kernel", plain):
+        cache = api.init_cache(1, 2 * LONG_PROMPT, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cache = api.prefill(params, batch, cache, backend=backend)
+        torch.cuda.synchronize()
+        prefill_ms.setdefault(backend, []).append(
+            (time.perf_counter() - t0) * 1e3)
+        logits[backend] = out[0, -1].float()
+        del cache
+    a, b = logits["kernel"], logits[plain]
+    check(bool(torch.isfinite(a).all()), "long prefill: logits not finite")
+    diff = float((a - b).abs().max())
+    scale = float(b.abs().max())
+    cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+    print(f"prefill of {LONG_PROMPT} tokens: kernel {prefill_ms['kernel']} "
+          f"ms, {plain} {prefill_ms[plain]} ms (host clock, synchronised); "
+          f"last-position logits: max |kernel - {plain}| {diff} of max "
+          f"|logit| {scale}, cosine {cos}, same argmax "
+          f"{int(a.argmax()) == int(b.argmax())}")
+    check(diff <= tol * scale,
+          f"long prefill: logits differ by {diff} > {tol} x {scale}")
+    return {"prefill_ms": prefill_ms, "long_logits_max_abs_diff": diff,
+            "long_logits_max_abs": scale}
+
+
 def states_match(gpu, cpu, label: str) -> None:
     """Int/bool leaves equal, float leaves within RTOL (NaN == NaN)."""
     import torch
@@ -267,12 +406,17 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      naive_attention)
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.selective_scan import (fused_scan_ref,
+                                                    selective_scan,
+                                                    selective_scan_fused,
+                                                    selective_scan_ref)
+    from repro_torch.kernels.selective_scan import kernel as scan_kernel
     from repro_torch.kernels.tropical_apsp import kernel as minplus_kernel
     from repro_torch.launch import serve as serve_launch
     from repro_torch.models import layers as lm_layers
     from repro_torch.scenarios import get_scenario
 
-    kernels = (minplus_kernel, fa_kernel)
+    kernels = (minplus_kernel, fa_kernel, scan_kernel)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -289,14 +433,17 @@ def main() -> int:
             t0 = time.perf_counter()
             kern.build()
             return time.perf_counter() - t0
-        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        with concurrent.futures.ThreadPoolExecutor(3) as pool:
             builds = {name: pool.submit(timed_build, kern) for name, kern in
-                      (("minplus", minplus_kernel), ("flash", fa_kernel))}
+                      (("minplus", minplus_kernel), ("flash", fa_kernel),
+                       ("scan", scan_kernel))}
             build_s = builds["minplus"].result()
             fa_build_s = builds["flash"].result()
+            scan_build_s = builds["scan"].result()
         print(f"minplus: built and loaded in {build_s:.3f} s")
-        print(f"flash attention: built and loaded in {fa_build_s:.3f} s "
-              f"(both nvcc runs at once)")
+        print(f"flash attention: built and loaded in {fa_build_s:.3f} s")
+        print(f"selective scan: built and loaded in {scan_build_s:.3f} s "
+              f"(the three nvcc runs at once)")
 
     scenarios = ("paper-fabric", "leaf-spine", "fat-tree", "canonical-tree",
                  "leaf-spine-xl")
@@ -404,6 +551,7 @@ def main() -> int:
                 main_s = time.perf_counter() - t_main
                 launches = minplus_kernel.launch_count()
                 xl_fa_launches = fa_kernel.launch_count()
+                xl_scan_launches = scan_kernel.launch_count()
                 peak = torch.cuda.max_memory_allocated()
             steps = int(res.states.steps[0])
             check(not bool(res.states.stalled[0]), f"{name} stalled")
@@ -423,6 +571,7 @@ def main() -> int:
             print(f"{name}: final state equals the CPU run")
         check(launches > 0, "the main path launched no minplus kernel")
         check(xl_fa_launches == 0, "the simulator launched flash attention")
+        check(xl_scan_launches == 0, "the simulator launched the scan")
         print(f"leaf-spine-xl main path: {main_s:.3f} s from Experiment() "
               f"to the final state, minplus launches {launches}, peak "
               f"device memory {peak / 2**20:.1f} MiB")
@@ -504,94 +653,197 @@ def main() -> int:
     with phase("7 LM serving at full width on CUDA (qwen3-4b)"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for kern in kernels:
-            kern.reset_launch_count()
-        t_main = time.perf_counter()
-        served = serve_launch.run(SERVE_ARGV)
-        serve_main_s = time.perf_counter() - t_main
+        served, serve_main_s, serve_peak = serve_run(
+            serve_launch, SERVE_ARGV, kernels, "serve")
         fa_launches = fa_kernel.launch_count()
-        check(minplus_kernel.launch_count() == 0,
-              "the serving path launched the min-plus kernel")
-        serve_peak = torch.cuda.max_memory_allocated()
+        check(minplus_kernel.launch_count() == 0
+              and scan_kernel.launch_count() == 0,
+              "qwen3-4b's serving path launched min-plus or the scan")
         loop = served.loop
         cfg = loop.api.cfg
         n_params = sum(p.numel() for p in loop.params.parameters())
-        print(f"[serve] {len(served.results)} requests, {served.tokens} "
-              f"tokens, {served.tokens / served.seconds:.1f} tok/s "
-              f"({loop.slots} slots)")
-        check(len(served.results) == 16, "serve: not every request answered")
-        check(sorted(r.rid for r in served.results) == list(range(16)),
-              "serve: answers do not match the requests")
-        for r in served.results:
-            check(len(r.tokens) == 17 and r.decode_steps == 16,
-                  f"serve: request {r.rid} has {len(r.tokens)} tokens")
-            check(all(0 <= t < cfg.vocab for t in r.tokens),
-                  f"serve: request {r.rid} has a token out of the vocab")
         check(fa_launches == cfg.n_layers * 16,
               f"serve: {fa_launches} flash launches, expected "
               f"{cfg.n_layers} layers x 16 prefills")
-        tok_s = served.tokens / served.seconds
-        served_s, served_tokens = served.seconds, served.tokens
+        serve = {"arch": "qwen3-4b",
+                 "tok_s": served.tokens / served.seconds,
+                 "seconds": served.seconds, "tokens": served.tokens,
+                 "launcher_s": serve_main_s, "peak_gib": serve_peak / 2**30}
         print(f"qwen3-4b ({n_params} parameters, {cfg.dtype}): "
               f"{serve_main_s:.3f} s from the launcher's start to the last "
-              f"token ({served.seconds:.3f} s serving), {tok_s:.1f} tok/s, "
-              f"flash launches {fa_launches}, peak device memory "
-              f"{serve_peak / 2**30:.3f} GiB")
+              f"token ({served.seconds:.3f} s serving), "
+              f"{serve['tok_s']:.1f} tok/s, flash launches {fa_launches}, "
+              f"peak device memory {serve_peak / 2**30:.3f} GiB")
 
-        # where a serving tick goes: one decode step of every slot (CUDA
-        # events, back to back), its device time from a CUDA graph of it,
-        # its kernels' summed time from a profiler trace, and the float32
-        # unembedding inside it against a bf16 product
-        api, params = loop.api, loop.params
-        step_tokens = torch.zeros((loop.slots, 1), dtype=torch.int32,
-                                  device=dev)
-        tick = lambda: api.decode_step(params, step_tokens, loop.cache)
-        tick_ms = cuda_ms(tick, warmup=2, repeats=5, inner=5)
-        tick_graph_ms, tick_graph_call_ms = graph_ms(tick)
-        tick_kernels_ms = device_ms(tick)
+        # where a serving tick goes, and the float32 unembedding inside it
+        # against a bf16 product
+        serve.update(time_tick(loop))
+        params = loop.params
         xh = torch.randn(loop.slots, 1, cfg.d_model, generator=gen).to(
             cfg.dtype).to(dev)
-        unembed_ms = cuda_ms(lambda: lm_layers.unembed(
+        serve["unembed_f32_ms"] = cuda_ms(lambda: lm_layers.unembed(
             params.unembed, params.embed, xh, cfg))
-        unembed_bf16_ms = cuda_ms(lambda: xh @ params.unembed.w)
-        print(f"decode tick ({loop.slots} slots): {tick_ms:.6f} ms per "
-              f"tick; as a CUDA graph: device time {tick_graph_ms} ms, "
-              f"{tick_graph_call_ms:.6f} ms per replay back to back; its "
-              f"kernels' summed time (profiler) {tick_kernels_ms} ms; float32 "
-              f"unembedding {unembed_ms:.6f} ms per call (a bf16 product "
-              f"would take {unembed_bf16_ms:.6f} ms)")
+        serve["unembed_bf16_ms"] = cuda_ms(lambda: xh @ params.unembed.w)
+        print(f"float32 unembedding {serve['unembed_f32_ms']:.6f} ms per "
+              f"call (a bf16 product would take "
+              f"{serve['unembed_bf16_ms']:.6f} ms)")
 
         # one long prompt: the kernel against the plain attention
-        prompt = np.random.RandomState(0).randint(1, cfg.vocab, LONG_PROMPT)
-        batch = {"tokens": torch.from_numpy(prompt[None]).to(dev)}
-        logits, prefill_ms = {}, {}
-        for backend in ("kernel", "naive", "kernel", "naive"):
-            cache = api.init_cache(1, 2 * LONG_PROMPT, device=dev)
+        serve.update(long_prefill(loop, "naive", LOGIT_TOL))
+        serve["long_prefill_peak_gib"] = \
+            torch.cuda.max_memory_allocated() / 2**30
+        print(f"peak device memory over phase 7: "
+              f"{serve['long_prefill_peak_gib']:.3f} GiB")
+        del loop, served, params
+
+    with phase("8 Mamba serving at full width on CUDA (falcon-mamba-7b)"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cpu").manual_seed(1)
+
+        def fused_inputs(bsz, s, d_in, n_st, h0_scale):
+            """dt = softplus(U(-7, -2)), x, B, C ~ N(0, 1), A = -[1..N]
+            (falcon-mamba's init), h0 ~ N(0, h0_scale^2)."""
+            dt = torch.nn.functional.softplus(
+                torch.rand(bsz, s, d_in, generator=gen) * 5 - 7)
+            x = torch.randn(bsz, s, d_in, generator=gen)
+            bmat = torch.randn(bsz, s, n_st, generator=gen)
+            cmat = torch.randn(bsz, s, n_st, generator=gen)
+            a_neg = -torch.arange(1, n_st + 1,
+                                  dtype=torch.float32).repeat(d_in, 1)
+            h0 = torch.randn(bsz, d_in, n_st, generator=gen) * h0_scale
+            return [t.to(dev) for t in (dt, x, bmat, cmat, a_neg, h0)]
+
+        def hold(label, got, want):
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out, cache = api.prefill(params, batch, cache, backend=backend)
-            torch.cuda.synchronize()
-            prefill_ms.setdefault(backend, []).append(
-                (time.perf_counter() - t0) * 1e3)
-            logits[backend] = out[0, -1].float()
-            del cache
-        a, b_ = logits["kernel"], logits["naive"]
-        check(bool(torch.isfinite(a).all()), "long prefill: logits not finite")
-        diff = float((a - b_).abs().max())
-        scale = float(b_.abs().max())
-        cos = float(torch.nn.functional.cosine_similarity(a, b_, dim=0))
-        top_equal = int(a.argmax()) == int(b_.argmax())
-        print(f"prefill of {LONG_PROMPT} tokens: kernel {prefill_ms['kernel']}"
-              f" ms, plain attention {prefill_ms['naive']} ms (host clock, "
-              f"synchronised); last-position logits: max |kernel - plain| "
-              f"{diff} of max |logit| {scale}, cosine {cos}, same argmax "
-              f"{top_equal}")
-        check(diff <= LOGIT_TOL * scale,
-              f"long prefill: logits differ by {diff} > {LOGIT_TOL} x "
-              f"{scale}")
-        long_peak = torch.cuda.max_memory_allocated()
-        print(f"peak device memory over phase 7: {long_peak / 2**30:.3f} GiB")
-        del loop, served, api, params, logits
+            check(bool(torch.isfinite(got).all()), f"{label}: not finite")
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            check(torch.allclose(got, want, **SCAN_TOL),
+                  f"{label}: kernel and plain differ beyond {SCAN_TOL} "
+                  f"(max abs err {err})")
+            print(f"{label}: max abs err {err} at max |plain| {scale} "
+                  f"(rtol {SCAN_TOL['rtol']}, atol {SCAN_TOL['atol']})")
+            return err
+
+        scan_err = {}
+        for bsz, s_len, d_in, n_st in [(2, 16, 8, 4), (1, 100, 32, 16),
+                               (2, 64, 300, 16), (1, 33, 24, 8)]:
+            # the reference's sweep (tests/test_kernels.py), both entries
+            a = (torch.rand(bsz, s_len, d_in, n_st, generator=gen) * 0.499
+                 + 0.5).to(dev)
+            bb = (torch.randn(bsz, s_len, d_in, n_st, generator=gen)
+                  * 0.1).to(dev)
+            c = torch.randn(bsz, s_len, n_st, generator=gen).to(dev)
+            shape = [bsz, s_len, d_in, n_st]
+            hold(f"selective_scan_f32 {shape}",
+                 selective_scan(a, bb, c), selective_scan_ref(a, bb, c))
+            args = fused_inputs(*shape, 0.5)
+            y, h_last = selective_scan_fused(*args)
+            want_y, want_h = fused_scan_ref(*args)
+            hold(f"selective_scan_fused_f32 {shape} y", y, want_y)
+            hold(f"selective_scan_fused_f32 {shape} h_last", h_last, want_h)
+        # falcon-mamba-7b's shapes: the serving bucket, a decode tick from a
+        # nonzero state and the long prefill
+        scan_shapes = {"serve_bucket": (1, 32, 8192, 16, 0.0),
+                       "decode_tick": (4, 1, 8192, 16, 0.5),
+                       "long_prefill": (1, LONG_PROMPT, 8192, 16, 0.0)}
+        scan_args = {}
+        for key, (*shape, h0_scale) in scan_shapes.items():
+            args = fused_inputs(*shape, h0_scale)
+            y, h_last = selective_scan_fused(*args)
+            want_y, want_h = fused_scan_ref(*args)
+            label = f"selective_scan_fused_f32 {key} {shape}"
+            scan_err[key] = max(hold(f"{label} y", y, want_y),
+                                hold(f"{label} h_last", h_last, want_h))
+            scan_args[key] = args
+            del y, h_last, want_y, want_h
+        # the Pallas contract at the long prefill's shape: a and b
+        # materialised from the same inputs, 1.07 GB each
+        dt, x, bmat, cmat, a_neg, _ = scan_args["long_prefill"]
+        long_a = torch.exp(dt[..., None] * a_neg).contiguous()
+        long_b = ((dt * x)[..., None] * bmat[:, :, None, :]).contiguous()
+        scan_err["pallas_long"] = hold(
+            f"selective_scan_f32 {list(long_a.shape)}",
+            selective_scan(long_a, long_b, cmat),
+            selective_scan_ref(long_a, long_b, cmat))
+
+        # times: the kernel by fenced_ms less the floor (one launch); the
+        # plain versions, hundreds to thousands of launches, as the device
+        # time of a CUDA graph of one call less the floor
+        def time_scan(kern_fn, plain_fn, work):
+            t = {"ms": fenced_ms(kern_fn) - floor_ms,
+                 "call_ms": cuda_ms(kern_fn),
+                 "plain_ms": graph_ms(plain_fn)[0] - floor_ms,
+                 "plain_call_ms": cuda_ms(plain_fn, warmup=1, repeats=3,
+                                          inner=2)}
+            t["bytes"], t["operations"], t["exps"] = work
+            t["bound_ms"], t["bound_by"] = bound(*work)
+            return t
+
+        scan_times = {}
+        for key, args in scan_args.items():
+            bsz, s_len, d_in, n_st, _ = scan_shapes[key]
+            scan_times[key] = time_scan(
+                lambda args=args: selective_scan_fused(*args),
+                lambda args=args: fused_scan_ref(*args),
+                scan_work(bsz, s_len, d_in, n_st, fused=True))
+        scan_times["pallas_long"] = time_scan(
+            lambda: selective_scan(long_a, long_b, cmat),
+            lambda: selective_scan_ref(long_a, long_b, cmat),
+            scan_work(1, LONG_PROMPT, 8192, 16, fused=False))
+        for key, t in scan_times.items():
+            print(f"scan {key}: device time per call: kernel {t['ms']} ms, "
+                  f"plain {t['plain_ms']} ms (CUDA graph); per call through "
+                  f"the wrapper (CUDA events, back to back): kernel "
+                  f"{t['call_ms']:.6f} ms, plain {t['plain_call_ms']:.6f} "
+                  f"ms; bound {t['bound_ms']:.6f} ms by {t['bound_by']} "
+                  f"({t['bytes']} bytes, {t['operations']} float32 "
+                  f"operations, {t['exps']} exps)")
+        del scan_args, long_a, long_b, dt, x, bmat, cmat, a_neg
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # falcon-mamba-7b through the launcher
+        served, mamba_main_s, mamba_serve_peak = serve_run(
+            serve_launch, MAMBA_ARGV, kernels, "mamba serve")
+        mamba_launches = scan_kernel.launch_counts()
+        check(minplus_kernel.launch_count() == 0
+              and fa_kernel.launch_count() == 0,
+              "the Mamba serving path launched min-plus or flash attention")
+        loop = served.loop
+        cfg = loop.api.cfg
+        n_params = sum(p.numel() for p in loop.params.parameters())
+        check(n_params == MAMBA_PARAMS,
+              f"falcon-mamba-7b has {n_params} parameters, expected "
+              f"{MAMBA_PARAMS}")
+        want_launches = cfg.n_layers * (16 + MAMBA_TICKS)
+        check(mamba_launches["selective_scan_fused_f32"] == want_launches
+              and mamba_launches["selective_scan_f32"] == 0,
+              f"mamba serve: scan launches {mamba_launches}, expected "
+              f"{cfg.n_layers} layers x (16 prefills + {MAMBA_TICKS} ticks)"
+              f" = {want_launches} of the fused entry")
+        serve_ssm = {"arch": "falcon-mamba-7b",
+                     "tok_s": served.tokens / served.seconds,
+                     "seconds": served.seconds, "tokens": served.tokens,
+                     "launcher_s": mamba_main_s,
+                     "peak_gib": mamba_serve_peak / 2**30}
+        print(f"falcon-mamba-7b ({n_params} parameters, {cfg.dtype}): "
+              f"{mamba_main_s:.3f} s from the launcher's start to the last "
+              f"token ({served.seconds:.3f} s serving), "
+              f"{serve_ssm['tok_s']:.1f} tok/s, scan launches "
+              f"{mamba_launches}, peak device memory "
+              f"{mamba_serve_peak / 2**30:.3f} GiB")
+        serve_ssm.update(time_tick(loop))
+        # one long prompt: the kernel against the chunked scan
+        serve_ssm.update(long_prefill(loop, "chunked", MAMBA_LOGIT_TOL))
+        serve_ssm["phase_peak_gib"] = \
+            torch.cuda.max_memory_allocated() / 2**30
+        print(f"peak device memory over phase 8: "
+              f"{serve_ssm['phase_peak_gib']:.3f} GiB")
+        del loop, served
 
     t_fa = fa_times[LONG_PROMPT]
     print(json.dumps({"kernels": [{
@@ -634,20 +886,38 @@ def main() -> int:
         "build_s": fa_build_s,
         "serve_bucket": {"S": 32, "max_abs_err": fa_err[32],
                          **fa_times[32]},
+    }, {
+        "name": "selective_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/selective_scan.cu",
+        "replaces": "src/repro/kernels/selective_scan/kernel.py:25",
+        "shape": {"dt_x": [1, LONG_PROMPT, 8192], "n": 16,
+                  "entry": "selective_scan_fused_f32"},
+        "launches": sum(mamba_launches.values()),
+        "max_abs_err": scan_err["long_prefill"],
+        "ms": scan_times["long_prefill"]["ms"],
+        "plain_ms": scan_times["long_prefill"]["plain_ms"],
+        "call_ms": scan_times["long_prefill"]["call_ms"],
+        "plain_call_ms": scan_times["long_prefill"]["plain_call_ms"],
+        "bound_ms": scan_times["long_prefill"]["bound_ms"],
+        "bound_by": scan_times["long_prefill"]["bound_by"],
+        "library_ms": None,
+        "build_s": scan_build_s,
+        "fused": {"entry": "selective_scan_fused_f32",
+                  "replaces": "src/repro/models/ssm.py:110",
+                  "launches": mamba_launches["selective_scan_fused_f32"],
+                  **{key: {"max_abs_err": scan_err[key], **scan_times[key]}
+                     for key in ("long_prefill", "serve_bucket",
+                                 "decode_tick")}},
+        "pallas_contract": {
+            "entry": "selective_scan_f32",
+            "replaces": "src/repro/kernels/selective_scan/kernel.py:49",
+            "shape": [1, LONG_PROMPT, 8192, 16],
+            "launches": mamba_launches["selective_scan_f32"],
+            "max_abs_err": scan_err["pallas_long"], "library_ms": None,
+            **scan_times["pallas_long"]},
     }], "steps_per_s": rates, "device_idle_share": idle,
-        "serve": {"arch": "qwen3-4b", "tok_s": tok_s,
-                  "seconds": served_s, "tokens": served_tokens,
-                  "launcher_s": serve_main_s,
-                  "prefill_ms": prefill_ms,
-                  "peak_gib": serve_peak / 2**30,
-                  "tick_ms": tick_ms, "tick_graph_ms": tick_graph_ms,
-                  "tick_graph_call_ms": tick_graph_call_ms,
-                  "tick_kernels_ms": tick_kernels_ms,
-                  "unembed_f32_ms": unembed_ms,
-                  "unembed_bf16_ms": unembed_bf16_ms,
-                  "long_prefill_peak_gib": long_peak / 2**30,
-                  "long_logits_max_abs_diff": diff,
-                  "long_logits_max_abs": scale}}))
+        "serve": serve, "serve_ssm": serve_ssm}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

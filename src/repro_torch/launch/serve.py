@@ -3,11 +3,15 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
       --requests 16 --slots 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
 
 Weights are random (seed 0, drawn on the device); the traffic is the
 reference's: prompts of 4-31 tokens from ``RandomState(0)``.  ``--backend``
-picks the prefill's attention (``kernel``: the CUDA flash-attention kernel
-on the card, its plain version on the CPU).
+(default ``kernel``: the hand-written CUDA kernel on the card, its plain
+version on the CPU) means, for a dense arch, the prefill's attention
+(``naive``, ``chunked`` or ``kernel``; the decode step attends over the
+cache by its one-token path), and for falcon-mamba-7b the selective scan
+of the prefill and of the decode step (``kernel`` or ``chunked``).
 """
 from __future__ import annotations
 
@@ -19,10 +23,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..configs import DENSE_ARCH_IDS, get_config, get_smoke_config
+from ..configs import PORTED_ARCH_IDS, get_config, get_smoke_config
 from ..device import resolve
 from ..models import get_model
 from ..models.attention import BACKENDS
+from ..models.ssm import SCAN_BACKENDS
 from ..serve import Request, Result, ServeLoop
 
 
@@ -39,7 +44,7 @@ class ServeRun:
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=DENSE_ARCH_IDS, default="qwen3-4b")
+    ap.add_argument("--arch", choices=PORTED_ARCH_IDS, default="qwen3-4b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
@@ -48,8 +53,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--backend", choices=BACKENDS, default="kernel",
-                    help="the prefill's attention backend")
-    return ap.parse_args(argv)
+                    help="dense archs: the prefill's attention (naive, "
+                    "chunked, kernel); falcon-mamba-7b: the selective scan "
+                    "of prefill and decode (chunked, kernel)")
+    args = ap.parse_args(argv)
+    if get_config(args.arch).family == "ssm" \
+            and args.backend not in SCAN_BACKENDS:
+        ap.error(f"--backend {args.backend}: {args.arch} takes "
+                 f"{', '.join(SCAN_BACKENDS)}")
+    return args
 
 
 def run(argv=None) -> ServeRun:

@@ -23,8 +23,8 @@ from torch import nn
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The dense family's fields of the reference's config, with its
-    defaults.  The other families' fields (MoE, SSM, hybrid, enc-dec,
+    """The dense and SSM families' fields of the reference's config, with
+    its defaults.  The other families' fields (MoE, hybrid, enc-dec,
     M-RoPE, frontends, FSDP) come with the slices that read them."""
 
     name: str = "model"
@@ -39,7 +39,15 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 1e6
     tie_embeddings: bool = False
+    # SSM (Mamba1)
+    ssm_state: int = 16
+    ssm_conv: int = 4
+    ssm_expand: int = 2
     dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def d_inner(self) -> int:      # mamba inner width
+        return self.ssm_expand * self.d_model
 
 
 def _param(shape, dtype, device) -> nn.Parameter:

@@ -1,5 +1,5 @@
 """Model registry: family -> (init, apply, cache, prefill, decode) API.
-Port of ``src/repro/models/registry.py`` for the dense family.
+Port of ``src/repro/models/registry.py`` for the dense and ssm families.
 
 ``get_model(cfg)`` returns a ``ModelApi`` whose members close over the
 config.  ``init(seed, device=)`` draws the weights from a ``torch.Generator``
@@ -15,13 +15,12 @@ from typing import Any, Callable
 import torch
 
 from ..device import resolve
-from . import transformer
+from . import mamba_lm, transformer
 from .layers import ModelConfig
 
 # family -> the ROADMAP item that ports it
 _NOT_PORTED = {
     "moe": "ROADMAP queue 1 item 11, moe",
-    "ssm": "ROADMAP queue 1 item 11, ssm/mamba_lm",
     "hybrid": "ROADMAP queue 1 item 11, hybrid",
     "audio": "ROADMAP queue 1 item 11, encdec",
     "vlm": "ROADMAP queue 1 item 11, vlm/M-RoPE",
@@ -38,22 +37,33 @@ class ModelApi:
     decode_step: Callable[..., Any]
 
 
+# family -> (init, apply, init_cache, prefill, decode_step)
+_FAMILIES = {
+    "dense": (transformer.lm_init, transformer.lm_apply,
+              transformer.lm_init_cache, transformer.lm_prefill,
+              transformer.lm_decode_step),
+    "ssm": (mamba_lm.ssm_lm_init, mamba_lm.ssm_lm_apply,
+            mamba_lm.ssm_lm_init_cache, mamba_lm.ssm_lm_prefill,
+            mamba_lm.ssm_lm_decode_step),
+}
+
+
 def get_model(cfg: ModelConfig) -> ModelApi:
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
                                   f"({_NOT_PORTED[cfg.family]})")
-    if cfg.family != "dense":
+    if cfg.family not in _FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
+    f_init, f_apply, f_cache, f_prefill, f_decode = _FAMILIES[cfg.family]
     return ModelApi(
         cfg=cfg,
-        init=lambda seed=0, device=None: transformer.lm_init(
+        init=lambda seed=0, device=None: f_init(
             torch.Generator(device=resolve(device)).manual_seed(seed), cfg),
-        apply=lambda params, batch, **kw: transformer.lm_apply(
-            params, batch, cfg, **kw),
+        apply=lambda params, batch, **kw: f_apply(params, batch, cfg, **kw),
         init_cache=lambda batch, max_len=0, device=None:
-            transformer.lm_init_cache(cfg, batch, max_len, device=device),
-        prefill=lambda params, batch, cache, **kw: transformer.lm_prefill(
+            f_cache(cfg, batch, max_len, device=device),
+        prefill=lambda params, batch, cache, **kw: f_prefill(
             params, batch, cfg, cache, **kw),
-        decode_step=lambda params, tokens, cache, **kw:
-            transformer.lm_decode_step(params, tokens, cache, cfg, **kw),
+        decode_step=lambda params, tokens, cache, **kw: f_decode(
+            params, tokens, cache, cfg, **kw),
     )

@@ -219,12 +219,15 @@ def lm_prefill(params: DenseLM, batch: Dict[str, torch.Tensor],
 
 @torch.no_grad()
 def lm_decode_step(params: DenseLM, tokens: torch.Tensor, cache: Cache,
-                   cfg: ModelConfig) -> Tuple[torch.Tensor, Cache]:
+                   cfg: ModelConfig, *,
+                   backend: str = "kernel") -> Tuple[torch.Tensor, Cache]:
     """tokens [B,1]; each row's RoPE position and cache slot is its
     ``len``.  Returns logits [B, 1, V] float32 and the cache (written in
-    place) with ``len + 1``.  The reference's ``batch_extra`` (embeddings
-    in place of tokens) is not ported yet (the vlm family, ROADMAP queue 1
-    item 11)."""
+    place) with ``len + 1``.  The step attends over the cache by its
+    one-token path (``decode_attention``) whatever ``backend`` names, the
+    prefill's attention, which a serving loop passes to every family.  The
+    reference's ``batch_extra`` (embeddings in place of tokens) is not
+    ported yet (the vlm family, ROADMAP queue 1 item 11)."""
     x = embed(params.embed, tokens)
     pos = cache["len"]                                           # [B]
     for i, layer in enumerate(params.layers):

@@ -3,7 +3,8 @@
 ``params_from_jax(tree, cfg, device)`` takes the JAX package's param tree
 as nested dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray,
 params)``), layers stacked along a leading [L] axis, and returns the port's
-``DenseLM`` holding the same numbers.  bf16 arrays arrive as numpy arrays
+model of ``cfg.family`` (``DenseLM`` or ``SSMLM``) holding the same
+numbers.  bf16 arrays arrive as numpy arrays
 of the ``bfloat16`` extension type, which ``torch.from_numpy`` refuses;
 they are carried across bit for bit as int16 and viewed as
 ``torch.bfloat16``, so this module needs no ``ml_dtypes``.
@@ -17,7 +18,10 @@ import torch
 
 from ..device import resolve
 from .layers import ModelConfig
+from .mamba_lm import SSMLM
 from .transformer import DenseLM
+
+_MODELS = {"dense": DenseLM, "ssm": SSMLM}
 
 
 def to_torch(a: Any) -> torch.Tensor:
@@ -43,10 +47,14 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 @torch.no_grad()
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
-                    device=None) -> DenseLM:
-    """The reference's dense-LM param tree as the port's ``DenseLM`` on
-    ``device`` (CUDA unless asked for the CPU).  Every leaf must match a
-    parameter by name and shape, and every parameter must be covered."""
+                    device=None) -> torch.nn.Module:
+    """The reference's param tree of a dense or ssm LM as the port's
+    ``DenseLM`` or ``SSMLM`` on ``device`` (CUDA unless asked for the CPU).
+    Every leaf must match a parameter by name, shape and dtype, and every
+    parameter must be covered."""
+    if cfg.family not in _MODELS:
+        raise NotImplementedError(f"params_from_jax: family {cfg.family!r} "
+                                  f"is not ported yet")
     dev = resolve(device)
     state = {}
     for name, arr in _flatten(tree).items():
@@ -60,7 +68,7 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                 state[f"layers.{i}.{rest}"] = t[i]
         else:
             state[name] = t
-    model = DenseLM(cfg, dev)
+    model = _MODELS[cfg.family](cfg, dev)
     own = model.state_dict()
     if set(own) != set(state):
         raise ValueError(f"param tree does not match the model: missing "

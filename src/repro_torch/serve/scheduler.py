@@ -6,11 +6,14 @@ Each tick: (1) free slots are refilled by prefilling queued prompts into
 the slot's cache rows, (2) one decode step advances every slot, idle ones
 included, (3) finished rows (EOS or budget) are emitted.  Admission,
 bucketing, the left padding with token 0, the splice of a fresh one-row
-cache into the slot and the stop rule are the reference's.  The reference
-jits the decode step and one prefill per bucket; the port runs eagerly.
-``backend`` is the prefill's attention backend (the reference's loop uses
-the model's default, ``"chunked"``; ``"kernel"`` is the CUDA kernel on the
-card and its plain version on the CPU).
+cache into the slot (every cache tensor of two or more dims at
+``[:, slot]``, a one-dim tensor at ``[slot]``, whatever the family) and
+the stop rule are the reference's.  The reference jits the decode step and
+one prefill per bucket; the port runs eagerly.  ``backend`` goes to the
+model's prefill and decode step: for the dense family it is the prefill's
+attention (the decode step attends over the cache by its one-token path);
+for the ssm family it is the scan of both.  ``"kernel"`` is the CUDA
+kernel on the card and its plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -80,9 +83,11 @@ class ServeLoop:
             tokens = torch.from_numpy(prompt[None]).to(self.device)
             logits, row = self.api.prefill(self.params, {"tokens": tokens},
                                            row, backend=self.backend)
-            self.cache["k"][:, slot:slot + 1] = row["k"]
-            self.cache["v"][:, slot:slot + 1] = row["v"]
-            self.cache["len"][slot] = row["len"][0]
+            for name, full in self.cache.items():
+                if full.dim() >= 2:
+                    full[:, slot:slot + 1] = row[name]
+                else:
+                    full[slot] = row[name][0]
             tok = int(torch.argmax(logits[0, -1]))
             self.active[slot] = {"req": req, "tokens": [tok], "steps": 0,
                                  "plen": plen}
@@ -96,7 +101,8 @@ class ServeLoop:
         for slot, st in self.active.items():
             tokens[slot, 0] = st["tokens"][-1]
         logits, self.cache = self.api.decode_step(
-            self.params, torch.from_numpy(tokens).to(self.device), self.cache)
+            self.params, torch.from_numpy(tokens).to(self.device), self.cache,
+            backend=self.backend)
         nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
         done: List[Result] = []
         for slot in list(self.active):

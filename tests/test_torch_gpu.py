@@ -1,8 +1,10 @@
 """The port on a CUDA device: the min-plus kernel bitwise against its plain
 version, ``apsp`` against the numpy hop distances, a CUDA engine run
-against the CPU run, the flash-attention kernel against its plain version
-and a CUDA serving loop through the kernel against the same loop through
-the plain attention.  Every test is marked ``gpu`` and skips without a
+against the CPU run, the flash-attention kernel against its plain version,
+a CUDA serving loop through the kernel against the same loop through the
+plain attention, and both selective-scan entry points against their plain
+versions with a Mamba serving loop through the kernel against the chunked
+scan.  Every test is marked ``gpu`` and skips without a
 card; this file imports neither jax nor ``repro``, so it also runs where
 only PyTorch is installed:
 
@@ -21,6 +23,11 @@ from repro_torch.core.routing import hop_distances_np
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import naive_attention
+from repro_torch.kernels.selective_scan import (fused_scan_ref,
+                                                selective_scan,
+                                                selective_scan_fused,
+                                                selective_scan_ref)
+from repro_torch.kernels.selective_scan import kernel as scan_kernel
 from repro_torch.kernels.tropical_apsp import (apsp, kernel, minplus_matmul,
                                                minplus_matmul_ref)
 from repro_torch.models import get_model
@@ -132,4 +139,97 @@ def test_serve_loop_kernel_equals_plain_on_card(cuda):
         launched = fa_kernel.launch_count() - before
         assert launched == (cfg.n_layers * 3 if backend == "kernel" else 0)
     assert tokens["kernel"] == tokens["naive"]
+    assert all(len(t) == 7 for t in tokens["kernel"].values())
+
+
+# the selective scan against its plain versions: rtol 1e-4, atol 1e-5, the
+# reference's own tolerance for its kernel (the sums run in other orders)
+SCAN_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _scan_inputs(cuda, seed, b, s, d, n, h0_scale=0.0):
+    """dt = softplus(U(-7, -2)), A = -[1..N]; a, b of the Pallas contract
+    materialised from them."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    dt = torch.nn.functional.softplus(torch.rand(b, s, d, generator=gen) * 5
+                                      - 7)
+    x = torch.randn(b, s, d, generator=gen)
+    bmat = torch.randn(b, s, n, generator=gen)
+    cmat = torch.randn(b, s, n, generator=gen)
+    a_neg = -torch.arange(1, n + 1, dtype=torch.float32).repeat(d, 1)
+    h0 = torch.randn(b, d, n, generator=gen) * h0_scale
+    return [t.to(cuda) for t in (dt, x, bmat, cmat, a_neg, h0)]
+
+
+@pytest.mark.parametrize("b,s,d,n", [(2, 16, 8, 4), (1, 100, 32, 16),
+                                     (2, 64, 300, 16), (1, 33, 24, 8),
+                                     (1, 300, 1000, 16)])
+def test_scan_kernel_against_plain(cuda, b, s, d, n):
+    dt, x, bmat, cmat, a_neg, _ = _scan_inputs(cuda, s + d, b, s, d, n)
+    a = torch.exp(dt[..., None] * a_neg).contiguous()
+    bb = ((dt * x)[..., None] * bmat[:, :, None, :]).contiguous()
+    before = scan_kernel.launch_count()
+    got = selective_scan(a, bb, cmat)
+    torch.cuda.synchronize()
+    assert scan_kernel.launch_count() == before + 1
+    assert got.shape == (b, s, d) and got.dtype == torch.float32
+    torch.testing.assert_close(got, selective_scan_ref(a, bb, cmat),
+                               **SCAN_TOL)
+
+
+@pytest.mark.parametrize("b,s,d,n,h0_scale", [
+    (4, 1, 8192, 16, 0.5), (1, 32, 8192, 16, 0.0), (2, 200, 300, 4, 1.0),
+    (1, 1000, 1000, 16, 0.0), (3, 130, 77, 8, 0.3)])
+def test_fused_scan_kernel_against_plain(cuda, b, s, d, n, h0_scale):
+    args = _scan_inputs(cuda, s + d, b, s, d, n, h0_scale)
+    before = scan_kernel.launch_count()
+    y, h_last = selective_scan_fused(*args)
+    torch.cuda.synchronize()
+    assert scan_kernel.launch_count() == before + 1
+    want_y, want_h = fused_scan_ref(*args)
+    torch.testing.assert_close(y, want_y, **SCAN_TOL)
+    torch.testing.assert_close(h_last, want_h, **SCAN_TOL)
+
+
+def test_scan_kernel_refuses_other_state_sizes(cuda):
+    args = _scan_inputs(cuda, 0, 1, 4, 8, 12)
+    with pytest.raises(ValueError, match="N in"):
+        selective_scan_fused(*args)
+    a = torch.zeros(1, 4, 8, 3, device=cuda)
+    with pytest.raises(ValueError, match="N in"):
+        selective_scan(a, a, torch.zeros(1, 4, 3, device=cuda))
+    with pytest.raises(TypeError, match="float32"):
+        selective_scan_fused(*(t.double() for t in
+                               _scan_inputs(cuda, 0, 1, 4, 8, 4)))
+
+
+def test_mamba_serve_loop_kernel_equals_chunked_on_card(cuda):
+    """Smoke falcon-mamba in float32 on the card: the loop whose scans run
+    the kernel gives the same greedy tokens as the loop on the chunked
+    scan, and the kernel ran once per layer per prefill and per tick."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("falcon-mamba-7b"),
+                              dtype=torch.float32)
+    api = get_model(cfg)
+    params = api.init(0, device=cuda)
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(1, cfg.vocab, n).astype(np.int32)
+               for n in (8, 20, 33)]
+    tokens = {}
+    for backend in ("kernel", "chunked"):
+        loop = ServeLoop(api, params, slots=2, max_len=96, bucket=32,
+                         backend=backend, device=cuda)
+        for i, pr in enumerate(prompts):
+            loop.submit(Request(rid=i, prompt=pr, max_new=6))
+        before = scan_kernel.launch_count()
+        ticks = 0
+        out = []
+        while loop.queue or loop.active:
+            out.extend(loop.tick())
+            ticks += 1
+        tokens[backend] = {r.rid: r.tokens for r in out}
+        launched = scan_kernel.launch_count() - before
+        assert launched == (cfg.n_layers * (3 + ticks)
+                            if backend == "kernel" else 0)
+    assert tokens["kernel"] == tokens["chunked"]
     assert all(len(t) == 7 for t in tokens["kernel"].values())

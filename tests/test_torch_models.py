@@ -21,7 +21,7 @@ from repro.configs import get_config as ref_get_config
 from repro.configs import get_smoke_config as ref_get_smoke_config
 from repro.models import get_model as ref_get_model
 from repro.models import layers as ref_layers
-from repro_torch.configs import DENSE_ARCH_IDS, get_config, get_smoke_config
+from repro_torch.configs import PORTED_ARCH_IDS, get_config, get_smoke_config
 from repro_torch.models import get_model, layers
 from repro_torch.models.transformer import _scatter_kv, lm_init_cache
 from repro_torch.models.weights import _flatten, params_from_jax, to_torch
@@ -29,6 +29,8 @@ from repro_torch.models.weights import _flatten, params_from_jax, to_torch
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)
 KEY = jax.random.PRNGKey(0)
+DENSE_ARCH_IDS = tuple(a for a in PORTED_ARCH_IDS
+                       if get_config(a).family == "dense")
 
 
 def _cfgs(arch, dtype):
@@ -63,7 +65,7 @@ def _tokens(seed, b, s, vocab):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCH_IDS)
+@pytest.mark.parametrize("arch", PORTED_ARCH_IDS)
 def test_configs_equal_reference(arch):
     """The port's fields equal the reference's; every field the port does
     not carry stays at the reference's default in these configs."""
@@ -80,7 +82,7 @@ def test_configs_equal_reference(arch):
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if a not in DENSE_ARCH_IDS])
+                                  if a not in PORTED_ARCH_IDS])
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
         get_config(arch)
