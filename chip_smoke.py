@@ -23,11 +23,15 @@ Phases, each printed with its wall time:
    ``paper-fabric`` and ``leaf-spine`` run under the same policy too; each
    of the three prints its steps/s and, from a profiler trace of a second
    run, the device's busy time and idle share;
-6. the flash-attention kernel against its plain version on the card: the
-   reference's six sweep shapes (2e-5 in float32 with TF32 off, 2e-2 in
-   bf16), the serving path's shapes (qwen3-4b heads, q [1,S,32,128], k/v
-   [1,S,8,128], bf16, causal) at S = 32, 1000 (ragged) and 2048, and a
-   causal case with q_offset > 0; at S = 32 and S = 2048 the kernel's,
+6. the flash-attention kernel against its plain version on the card: its
+   kernels' registers, shared memory and blocks an SM, and the count of
+   tensor-core instructions (HGMMA, HMMA) in the bf16 kernel's SASS, which
+   must not be zero; the reference's six sweep shapes (2e-5 in float32 with
+   TF32 off, 2e-2 in bf16), the serving path's shapes (qwen3-4b heads, q
+   [1,S,32,128], k/v [1,S,8,128], bf16, causal) at S = 32, 1000 (ragged)
+   and 2048, a causal case with q_offset > 0, and the bf16 kernel's tile
+   edges (every Dh, GQA groups 1, 4 and 8, Sq < Skv with q_offset > 0,
+   non-causal); at S = 32 and S = 2048 the kernel's,
    the plain version's and ``scaled_dot_product_attention``'s times (the
    yardstick, never called by the port) beside the bound, as the device
    time of one call (``fenced_ms`` less the reading of an empty call) and
@@ -44,13 +48,16 @@ Phases, each printed with its wall time:
    memory; the device time of one decode tick from a CUDA graph of it
    replayed between two events, beside its kernels' summed time from a
    profiler trace;
-8. the Mamba serving path at full width: both selective-scan entry points
+8. the Mamba serving path at full width: the scan kernels' registers,
+   shared memory and blocks an SM; both selective-scan entry points
    against their plain versions on the card (rtol 1e-4, atol 1e-5, the
-   reference's own) at the reference's sweep shapes and at falcon-mamba-7b's
-   (the serving bucket [1,32,8192,16], a decode tick [4,1,8192,16] from a
-   nonzero state, the 2048-token prefill, and the Pallas-contract entry at
-   [1,2048,8192,16]), with their device times (``fenced_ms`` less the floor;
-   the plain versions as a CUDA graph) beside the bound; then, with phase
+   reference's own) at the reference's sweep shapes, across the borders
+   of the fused kernel's tiles of 16 steps (S = 1, 15, 16, 17, 2049; B = 1
+   and 4; D = 8190) and at falcon-mamba-7b's shapes (the serving bucket
+   [1,32,8192,16], a decode tick [4,1,8192,16] from a nonzero state, the
+   2048-token prefill, and the Pallas-contract entry at [1,2048,8192,16]),
+   with their device times (``fenced_ms`` less the floor; the plain
+   versions as a CUDA graph) beside the bound; then, with phase
    7's model freed, falcon-mamba-7b's published config (64 layers,
    d_model 4096, d_inner 8192, N 16, 7.27 B parameters, random bf16
    weights from a seeded generator on the card) through
@@ -59,11 +66,13 @@ Phases, each printed with its wall time:
    of 17 tokens and 64 x (16 prefills + 64 ticks) = 5120 scan launches;
    tok/s, the decode tick through Python and as a CUDA graph; a 2048-token
    prefill through the kernel against the chunked scan, whose
-   last-position logits must agree; and peak device memory.
+   last-position logits must agree, and the same prompt walked layer by
+   layer to show where their spread comes from (``mamba_depth_witness``);
+   and peak device memory.
 
-Then one JSON line with every kernel's numbers, the card's name and power
-limit, and last the line ``{"ok": true, "device": {...}}``.  Any failure
-raises and exits non-zero; without a CUDA device, or without the
+Then one JSON line with every kernel's numbers and design, the card's
+name and power limit, and last the line ``{"ok": true, "device":
+{...}}``.  Any failure raises and exits non-zero; without a CUDA device, or without the
 repository's ``src/`` beside this file, it exits non-zero and prints no
 result.
 """
@@ -106,8 +115,9 @@ SERVE_ARGV = ["--arch", "qwen3-4b", "--requests", "16", "--slots", "4",
 LONG_PROMPT = 2048
 # the long prefill's last-position logits, kernel against plain attention,
 # as a share of the largest |logit|: the two attentions round differently
-# in bf16 (the kernel keeps P in float32, the plain version casts the
-# weights to bf16 before P V), and 36 bf16 layers carry that on
+# in bf16 (the kernel rounds the unnormalised P to bf16 before P V and
+# divides by the float32 sum after, the plain version rounds the normalised
+# weights), and 36 bf16 layers carry that on
 LOGIT_TOL = 0.05
 
 # phase 8: falcon-mamba-7b with the reference launcher's traffic (64 decode
@@ -125,6 +135,38 @@ SCAN_TOL = dict(rtol=1e-4, atol=1e-5)
 # float32 summation order, but each block's output is rounded to bf16, so
 # a rare one-ulp flip carries through 64 bf16 layers, as phase 7's does
 MAMBA_LOGIT_TOL = 0.05
+
+
+DESIGN = {
+    "minplus": "32x32 output tiles staged through shared memory, float32 "
+               "min/add on the CUDA cores",
+    "flash": "bf16: wgmma for S = Q K^T (smem x smem) and O += P V (P in "
+             "registers, V MN-major in smem), TMA-fed K/V ring of 2 stages "
+             "on mbarriers, 2 consumer warpgroups x 64 rows + 1 producer "
+             "warp, heavy causal q-tiles first; float32: scalar FMAs",
+    "scan": "fused: 1-4 threads a channel with its N states in registers, "
+            "dt/x/B/C tiles of 16 steps staged in smem by cp.async, one "
+            "pass over the sequence; Pallas contract: one thread per "
+            "(channel, state)",
+}
+
+
+def sass_counts(lib_path: str, kernel_substr: str) -> dict:
+    """HGMMA (wgmma) and HMMA (mma.sync) instructions in the SASS of the
+    functions of a built library whose name holds ``kernel_substr``, from
+    ``cuobjdump -sass``."""
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts = {"HGMMA": 0, "HMMA": 0}
+    for func in sass.split("Function : ")[1:]:
+        if kernel_substr in func.splitlines()[0]:
+            for line in func.splitlines():
+                for op in counts:
+                    if f" {op}." in line or f" {op} " in line:
+                        counts[op] += 1
+    return counts
 
 
 class SmokeFailure(AssertionError):
@@ -376,6 +418,80 @@ def long_prefill(loop, plain: str, tol: float) -> dict:
             "long_logits_max_abs": scale}
 
 
+def mamba_depth_witness(loop) -> dict:
+    """Where the Mamba long prefill's logit spread comes from.  The same
+    LONG_PROMPT-token prompt walks the layers in three residual streams:
+    through the kernel, through the chunked scan (chunks of 128, the plain
+    version ``long_prefill`` holds the kernel against) and through the
+    chunked scan in chunks of 64 (the plain version in another summation
+    order).  At every layer the kernel also runs on the chunked stream's
+    own input, and its scan's end state must agree with the chunked
+    scan's within SCAN_TOL (one layer's scan alone, same activations).
+    Prints each stream's largest difference from the chunked stream, as a
+    share of its largest |value|, at depths 1, 2, 4, ... and in the
+    last-position logits."""
+    import functools
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from repro_torch.models import layers, ssm
+    params, cfg, dev = loop.params, loop.api.cfg, loop.device
+    prompt = np.random.RandomState(0).randint(1, cfg.vocab, LONG_PROMPT)
+    h0 = torch.zeros((1, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
+                     device=dev)
+    chunk_64 = functools.partial(ssm.fused_scan_ref, chunk=64)
+
+    def mix(layer, x, backend):
+        return ssm.mamba_mix(layer.mamba, layers.rmsnorm(layer.ln, x), cfg,
+                             h0, backend=backend)
+
+    def spread(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    depth, state_err, flips = {}, [], []
+    with torch.no_grad():  # the parameters require grad
+        x = layers.embed(params.embed, torch.from_numpy(prompt[None]).to(dev))
+        xs = {"kernel": x, "chunked": x, "chunked_64": x}
+        for i, layer in enumerate(params.layers, start=1):
+            y_c, st_c = mix(layer, xs["chunked"], "chunked")
+            y_k, st_k = mix(layer, xs["chunked"], "kernel")
+            err = float((st_k["h"] - st_c["h"]).abs().max())
+            check(torch.allclose(st_k["h"], st_c["h"], **SCAN_TOL),
+                  f"depth witness: layer {i}'s kernel scan state differs "
+                  f"from the chunked scan's by {err} on the same input")
+            state_err.append(err)
+            flips.append(float((y_k != y_c).float().mean()))
+            with mock.patch.object(ssm, "fused_scan_ref", chunk_64):
+                y_64 = mix(layer, xs["chunked_64"], "chunked")[0]
+            xs = {"kernel": xs["kernel"]
+                  + mix(layer, xs["kernel"], "kernel")[0],
+                  "chunked": xs["chunked"] + y_c,
+                  "chunked_64": xs["chunked_64"] + y_64}
+            if i & (i - 1) == 0 or i == len(params.layers):
+                depth[i] = {k: spread(xs[k], xs["chunked"])
+                            for k in ("kernel", "chunked_64")}
+        logits = {k: layers.unembed(
+                      params.unembed, params.embed,
+                      layers.rmsnorm(params.final_norm, v[:, -1:]),
+                      cfg)[0, -1].float()
+                  for k, v in xs.items()}
+    out = {"scan_state_max_abs_err": max(state_err),
+           "block_output_flip_share": max(flips),
+           "residual_spread_by_depth": depth,
+           "logit_spread": {k: spread(logits[k], logits["chunked"])
+                            for k in ("kernel", "chunked_64")}}
+    print(f"depth witness ({LONG_PROMPT} tokens): on the same input the "
+          f"kernel's scan end state is within {out['scan_state_max_abs_err']}"
+          f" of the chunked scan's at all {len(state_err)} layers, and at "
+          f"most {out['block_output_flip_share']} of a block's bf16 outputs "
+          f"differ; residual stream against the chunked stream, as a share "
+          f"of its max |x|, by depth: {depth}; last-position logits: "
+          f"{out['logit_spread']}")
+    return out
+
+
 def states_match(gpu, cpu, label: str) -> None:
     """Int/bool leaves equal, float leaves within RTOL (NaN == NaN)."""
     import torch
@@ -412,6 +528,7 @@ def main() -> int:
                                                     selective_scan_ref)
     from repro_torch.kernels.selective_scan import kernel as scan_kernel
     from repro_torch.kernels.tropical_apsp import kernel as minplus_kernel
+    from repro_torch.kernels import _build
     from repro_torch.launch import serve as serve_launch
     from repro_torch.models import layers as lm_layers
     from repro_torch.scenarios import get_scenario
@@ -577,6 +694,20 @@ def main() -> int:
               f"device memory {peak / 2**20:.1f} MiB")
 
     with phase("6 flash attention against its plain version"):
+        fa_occ = {str(dt).split(".")[-1]: fa_kernel.kernel_info(dt, 128)
+                  for dt in (torch.bfloat16, torch.float32)}
+        for name, occ in fa_occ.items():
+            print(f"flash {name} kernel at Dh = 128: {occ['registers']} "
+                  f"registers a thread, {occ['static_smem']} + "
+                  f"{occ['dynamic_smem']} bytes of shared memory (static + "
+                  f"dynamic), {occ['blocks_per_sm']} blocks of "
+                  f"{occ['threads']} threads an SM")
+        fa_sass = sass_counts(str(_build.library_path("flash_attention")),
+                              "flash_fwd_tc_kernel")
+        print(f"flash bf16 kernel SASS: {fa_sass['HGMMA']} HGMMA (wgmma), "
+              f"{fa_sass['HMMA']} HMMA (mma.sync)")
+        check(fa_sass["HGMMA"] + fa_sass["HMMA"] > 0,
+              "the bf16 flash kernel has no tensor-core instruction")
         gen = torch.Generator(device="cpu").manual_seed(0)
         fa_shapes = [  # b, sq, skv, h, kv, dh, causal, q_offset, dtype
             # the reference's sweep (tests/test_kernels.py)
@@ -594,6 +725,16 @@ def main() -> int:
             # a chunk of queries after 1000 cached positions; float32 too
             (1, 500, 1500, 32, 8, 128, True, 1000, torch.bfloat16),
             (1, 1000, 1000, 32, 8, 128, True, 0, torch.float32),
+            # the tensor-core kernel's tile edges (128 query rows, 64 keys
+            # a tile): every Dh, GQA groups 1, 4 and 8, q_offset > 0 with
+            # Sq < Skv, non-causal
+            (1, 1, 1, 8, 8, 16, True, 0, torch.bfloat16),
+            (1, 63, 63, 8, 2, 32, True, 0, torch.bfloat16),
+            (1, 64, 129, 8, 1, 64, True, 65, torch.bfloat16),
+            (2, 65, 127, 8, 2, 128, False, 0, torch.bfloat16),
+            (1, 127, 1000, 8, 8, 128, True, 873, torch.bfloat16),
+            (1, 129, 64, 8, 1, 16, False, 0, torch.bfloat16),
+            (1, 1000, 1000, 8, 2, 64, True, 0, torch.bfloat16),
         ]
         fa_err = {}
         fa_inputs = {}
@@ -728,6 +869,15 @@ def main() -> int:
                   f"(rtol {SCAN_TOL['rtol']}, atol {SCAN_TOL['atol']})")
             return err
 
+        scan_occ = {name: scan_kernel.kernel_info(name, 16)
+                    for name in scan_kernel.KERNELS}
+        for name, occ in scan_occ.items():
+            print(f"scan kernel {name} at N = 16: {occ['registers']} "
+                  f"registers a thread, {occ['static_smem']} + "
+                  f"{occ['dynamic_smem']} bytes of shared memory (static + "
+                  f"dynamic), {occ['blocks_per_sm']} blocks of "
+                  f"{occ['threads']} threads an SM")
+
         scan_err = {}
         for bsz, s_len, d_in, n_st in [(2, 16, 8, 4), (1, 100, 32, 16),
                                (2, 64, 300, 16), (1, 33, 24, 8)]:
@@ -745,6 +895,16 @@ def main() -> int:
             want_y, want_h = fused_scan_ref(*args)
             hold(f"selective_scan_fused_f32 {shape} y", y, want_y)
             hold(f"selective_scan_fused_f32 {shape} h_last", h_last, want_h)
+        # the fused kernel across the borders of its tiles of 16 steps
+        for bsz in (1, 4):
+            for s_len in (1, 15, 16, 17, 2049):
+                args = fused_inputs(bsz, s_len, 8190, 16, 0.5)
+                y, h_last = selective_scan_fused(*args)
+                want_y, want_h = fused_scan_ref(*args)
+                label = f"selective_scan_fused_f32 {[bsz, s_len, 8190, 16]}"
+                hold(f"{label} y", y, want_y)
+                hold(f"{label} h_last", h_last, want_h)
+                del y, h_last, want_y, want_h, args
         # falcon-mamba-7b's shapes: the serving bucket, a decode tick from a
         # nonzero state and the long prefill
         scan_shapes = {"serve_bucket": (1, 32, 8192, 16, 0.0),
@@ -839,6 +999,7 @@ def main() -> int:
         serve_ssm.update(time_tick(loop))
         # one long prompt: the kernel against the chunked scan
         serve_ssm.update(long_prefill(loop, "chunked", MAMBA_LOGIT_TOL))
+        serve_ssm["depth_witness"] = mamba_depth_witness(loop)
         serve_ssm["phase_peak_gib"] = \
             torch.cuda.max_memory_allocated() / 2**30
         print(f"peak device memory over phase 8: "
@@ -863,6 +1024,7 @@ def main() -> int:
                      else "operations"),
         "library_ms": None,
         "build_s": build_s,
+        "design": DESIGN["minplus"],
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -886,6 +1048,9 @@ def main() -> int:
         "build_s": fa_build_s,
         "serve_bucket": {"S": 32, "max_abs_err": fa_err[32],
                          **fa_times[32]},
+        "design": DESIGN["flash"],
+        "occupancy": fa_occ,
+        "sass": fa_sass,
     }, {
         "name": "selective_scan",
         "route": "cuda",
@@ -906,7 +1071,8 @@ def main() -> int:
         "fused": {"entry": "selective_scan_fused_f32",
                   "replaces": "src/repro/models/ssm.py:110",
                   "launches": mamba_launches["selective_scan_fused_f32"],
-                  **{key: {"max_abs_err": scan_err[key], **scan_times[key]}
+                  **{key: {"max_abs_err": scan_err[key],
+                           **scan_times[key]}
                      for key in ("long_prefill", "serve_bucket",
                                  "decode_tick")}},
         "pallas_contract": {
@@ -916,6 +1082,8 @@ def main() -> int:
             "launches": mamba_launches["selective_scan_f32"],
             "max_abs_err": scan_err["pallas_long"], "library_ms": None,
             **scan_times["pallas_long"]},
+        "design": DESIGN["scan"],
+        "occupancy": scan_occ,
     }], "steps_per_s": rates, "device_idle_share": idle,
         "serve": serve, "serve_ssm": serve_ssm}))
     print(card)

@@ -1,7 +1,7 @@
 // Mamba1 selective scan for Hopper (sm_90a):
 //     h_t = a_t * h_{t-1} + b_t    (elementwise over [D, N], in order over t)
 //     y_t[d] = sum_n h_t[d, n] * c_t[n]
-// in float32, with two C entry points that share one device-side recurrence:
+// in float32, with two C entry points:
 //
 //   selective_scan_f32        a, b [B, S, D, N], c [B, S, N] -> y [B, S, D]
 //                             (h_0 = 0): the Pallas kernel's own contract.
@@ -19,7 +19,7 @@
 // and contraction with the discretisation inside each chunk).  On the
 // serving path of falcon-mamba-7b the fused entry runs once per layer at
 // every prefill (B = 1, S = the bucket, D = 8192, N = 16) and every decode
-// tick (S = 1, h0 = the cache's state).
+// tick (B = 4, S = 1, h0 = the cache's state).
 //
 // What bounds it on an H100.  The fused entry moves dt, x and y (12 bytes
 // per (t, d)) and does one exp per (t, d, n): at S = 2048, D = 8192,
@@ -30,25 +30,49 @@
 // bucket and the decode tick the work is a few MB and one launch's latency
 // is the whole cost.
 //
-// Design (simple first).  One thread per (channel d, state n); N (a power
-// of two that divides 32) lanes of a warp own one channel, and each keeps
-// its h in one register for the whole sequence: the TPU kernel's carry
-// across its sequential chunk grid becomes a loop over t inside the block.
-// Blocks of 128 threads cover 128 / N channels of one batch row
-// (grid: channels x batch).  The loop walks t in tiles of 8 steps, the
-// next tile's inputs loaded into registers while the current one is
-// computed (dt[t, d] and x[t, d] once per channel, broadcast across its
-// lanes; bmat, cmat and the Pallas entry's a, b, c coalesced).  The loads
-// are unconditional, on clamped indices: a load behind a per-step branch
-// cannot be hoisted, and each one then waits out its own trip to memory.
-// Per step: the dependent FMA, then the N-lane sum of h * c by
-// __shfl_xor_sync, and lane 0 of the channel writes y[t, d].  exp is the
-// accurate expf (no fast math).  Lanes past D (the ragged edge) compute on
-// channel 0's inputs and write nothing, so every lane takes part in the
-// shuffles and no input is padded on the host.  A chunked parallel scan
-// across blocks and a shared-memory B/C tile are later work.
+// Fused entry.  A thread owns NPT states of one channel in registers (all
+// N for N <= 4, 4 of 16 at falcon-mamba's N = 16, 8 of 32), so 1, 2 or 4
+// threads share a channel.  A block of 128 threads covers CPB = 128 /
+// threads-a-channel channels of one batch row (32 at N = 16).  Per tile of
+// 16 steps the block stages the rows of dt and x of its channels
+// (coalesced across d) and the B and C rows that all its channels share
+// into shared memory by cp.async, two tiles in flight, so each input is
+// read from device memory once.  A thread's share of y_t goes to shared
+// memory (no shuffle in the step), and after the tile the shares of each
+// channel are summed and y is stored coalesced across the block's
+// channels.  exp(dt A) is exp2f(dt * (A log2 e)), A pre-scaled once
+// (accurate exp2f, no fast math).
+//
+// One pass over the whole sequence, no chunks across it.  Chunks (each
+// chunk's end state from h = 0, the carries combined by exp(A sum dt), then
+// each chunk rerun, or one pass with decoupled look-back) pay only where
+// the batch rows and channels leave SMs idle; both compute each chunk's
+// exps twice.  At falcon-mamba's shapes B x D x threads-a-channel is at
+// least 32768 threads, 256 blocks of 128, so every SM already has a block
+// (the waves below), and the second look at each step would be pure cost.
+//
+// Waves at falcon-mamba's shapes (D = 8192, N = 16: 4 threads a channel,
+// 56 registers a thread and 20 KB of shared memory a block of 128, so 9
+// blocks an SM, 1188 on the card): the decode tick [4, 1] is 1024 blocks
+// and the serving bucket [1, 32] 256, each one wave; the long prefill
+// [1, 2048] is 256 blocks, one wave of 2 blocks (8 warps) an SM, each a
+// 2048-step loop with 4 independent states a thread to hide latency.
+//
+// Pallas-contract entry (off the serving path; its earlier design).  One
+// thread per (channel d, state n); N (a power of two that divides 32)
+// lanes of a warp own one channel, and each keeps its h in one register
+// for the whole sequence.  Blocks of 128 threads cover 128 / N channels of
+// one batch row (grid: channels x batch).  The loop walks t in tiles of 8
+// steps, the next tile's inputs loaded into registers while the current
+// one is computed.  The loads are unconditional, on clamped indices: a
+// load behind a per-step branch cannot be hoisted, and each one then waits
+// out its own trip to memory.  Per step: the dependent FMA, then the
+// N-lane sum of h * c by __shfl_xor_sync, and lane 0 of the channel writes
+// y[t, d].  exp is the accurate expf (no fast math).  Lanes past D compute
+// on channel 0's inputs and write nothing.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -56,10 +80,10 @@ constexpr int kThreads = 128;
 constexpr int kTile = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
-// Each input type loads one tile of kTile steps of a lane's inputs into
-// registers (load: plain loads, nothing waits on them) and turns step j of
-// a loaded tile into (a_t, b_t, c_t) (step).  td indexes [B, S, D] and tn
-// [B, S, N] at the tile's step j.
+// The Pallas contract's inputs: load puts one tile of kTile steps of a
+// lane's inputs into registers (plain loads, nothing waits on them) and
+// step turns step j of a loaded tile into (a_t, b_t, c_t).  td indexes
+// [B, S, D] and tn [B, S, N] at the tile's step j.
 struct PallasInputs {
   const float* a;  // [B, S, D, N]
   const float* b;  // [B, S, D, N]
@@ -82,33 +106,6 @@ struct PallasInputs {
                                        float& drive, float& cc) const {
     decay = tl.a[j];
     drive = tl.b[j];
-    cc = tl.c[j];
-  }
-};
-
-struct FusedInputs {
-  const float* dt;     // [B, S, D]
-  const float* x;      // [B, S, D]
-  const float* bmat;   // [B, S, N]
-  const float* cmat;   // [B, S, N]
-  float a;             // a_neg[d, n] of this lane
-
-  struct Tile {
-    float dt[kTile], x[kTile], b[kTile], c[kTile];
-  };
-
-  __device__ __forceinline__ void load(Tile& tl, int j, long long td,
-                                       long long tn, int, int) const {
-    tl.dt[j] = dt[td];
-    tl.x[j] = x[td];
-    tl.b[j] = bmat[tn];
-    tl.c[j] = cmat[tn];
-  }
-
-  __device__ __forceinline__ void step(const Tile& tl, int j, float& decay,
-                                       float& drive, float& cc) const {
-    decay = expf(tl.dt[j] * a);
-    drive = (tl.dt[j] * tl.x[j]) * tl.b[j];
     cc = tl.c[j];
   }
 };
@@ -173,45 +170,237 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int N>
-__global__ void __launch_bounds__(kThreads)
-    fused_scan_kernel(FusedInputs in, const float* a_neg, const float* h0,
-                      float* y, float* h_last, int s, int d_total) {
-  const int n = threadIdx.x % N;
-  const int d = blockIdx.x * (kThreads / N) + threadIdx.x / N;
-  const bool live = d < d_total;
-  const int dc = live ? d : 0;  // lanes past D read channel 0's state
-  const long long hi = ((long long)blockIdx.y * d_total + dc) * N + n;
-  in.a = a_neg[(long long)dc * N + n];
-  float h = h0[hi];
-  h = scan_lane<N>(in, h, blockIdx.y, s, d, d_total, n, live, y);
-  if (live) h_last[hi] = h;
-}
-
-template <int N>
 void launch_pallas(const PallasInputs& in, float* y, int bsz, int s, int d,
                    cudaStream_t stream) {
   const dim3 grid((d + kThreads / N - 1) / (kThreads / N), bsz);
   pallas_scan_kernel<N><<<grid, kThreads, 0, stream>>>(in, y, s, d);
 }
 
-// The fused entry's state and outputs.
-struct Out {
+// ---------------------------------------------------------------------------
+// The fused entry: one thread per channel (or up to 4), one pass over S
+// ---------------------------------------------------------------------------
+
+constexpr int kSteps = 16;  // time steps of one shared-memory tile
+
+// States a thread and threads a channel: N = 1, 2, 4 -> one thread holds all
+// N; N = 8 -> 2 threads of 4; N = 16 -> 4 of 4; N = 32 -> 4 of 8.
+template <int N>
+struct Split {
+  static constexpr int NPT = N <= 4 ? N : (N / 4 > 4 ? N / 4 : 4);
+  static constexpr int TPC = N / NPT;
+  static constexpr int CPB = kThreads / TPC;  // channels a block
+};
+
+struct FusedArgs {
+  const float* dt;     // [B, S, D]
+  const float* x;      // [B, S, D]
+  const float* bmat;   // [B, S, N]
+  const float* cmat;   // [B, S, N]
   const float* a_neg;  // [D, N]
   const float* h0;     // [B, D, N]
   float* y;            // [B, S, D]
   float* h_last;       // [B, D, N]
+  int s, d;
 };
 
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
 template <int N>
-void launch_fused(const FusedInputs& in, const Out& out, int bsz, int s,
-                  int d, cudaStream_t stream) {
-  const dim3 grid((d + kThreads / N - 1) / (kThreads / N), bsz);
-  fused_scan_kernel<N><<<grid, kThreads, 0, stream>>>(
-      in, out.a_neg, out.h0, out.y, out.h_last, s, d);
+struct FusedTile {
+  float dt[kSteps][Split<N>::CPB];
+  float x[kSteps][Split<N>::CPB];
+  float b[kSteps][N];
+  float c[kSteps][N];
+};
+
+// Stage steps [t0, t0 + kSteps) of the block's channels [d0, d0 + CPB) and
+// of B and C into `tl` by cp.async; entries past S or D are zeros.
+template <int N>
+__device__ __forceinline__ void stage(FusedTile<N>& tl, const FusedArgs& a,
+                                      int bi, int d0, int t0) {
+  constexpr int CPB = Split<N>::CPB;
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < kSteps * CPB / kThreads; ++r) {
+    const int i = tid + r * kThreads;
+    const int j = i / CPB, ch = i % CPB;
+    const bool ok = t0 + j < a.s && d0 + ch < a.d;
+    const long long off =
+        ok ? ((long long)bi * a.s + t0 + j) * a.d + d0 + ch : 0;
+    cp_async4(&tl.dt[j][ch], a.dt + off, ok);
+    cp_async4(&tl.x[j][ch], a.x + off, ok);
+  }
+#pragma unroll
+  for (int r = 0; r < (kSteps * N + kThreads - 1) / kThreads; ++r) {
+    const int i = tid + r * kThreads;
+    if (i >= kSteps * N) break;
+    const int j = i / N, n = i % N;
+    const bool ok = t0 + j < a.s;
+    const long long off = ok ? ((long long)bi * a.s + t0 + j) * N + n : 0;
+    cp_async4(&tl.b[j][n], a.bmat + off, ok);
+    cp_async4(&tl.c[j][n], a.cmat + off, ok);
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void load_vec(float* dst, const float* src) {
+  if constexpr (K % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < K; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(src + i);
+      dst[i] = v.x; dst[i + 1] = v.y; dst[i + 2] = v.z; dst[i + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < K; ++i) dst[i] = src[i];
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void store_vec(float* dst, const float* src) {
+  if constexpr (K % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < K; i += 4) {
+      *reinterpret_cast<float4*>(dst + i) =
+          make_float4(src[i], src[i + 1], src[i + 2], src[i + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < K; ++i) dst[i] = src[i];
+  }
+}
+
+// Block (x, b) scans channels [x CPB, (x + 1) CPB) of batch row b over the
+// whole sequence from h0, writing y and h_last.
+template <int N>
+__global__ void __launch_bounds__(kThreads)
+    fused_scan_kernel(FusedArgs a) {
+  using Sp = Split<N>;
+  constexpr int NPT = Sp::NPT;
+  constexpr int TPC = Sp::TPC;
+  __shared__ __align__(16) FusedTile<N> tiles[2];
+  // each thread's share of y_t (its NPT states' h * c) for one tile
+  __shared__ float y_part[kSteps][Sp::CPB][TPC];
+
+  const int tid = threadIdx.x;
+  const int ch = tid / TPC;
+  const int sub = tid % TPC;
+  const int n0 = sub * NPT;
+  const int bi = blockIdx.y;
+  const int d0 = blockIdx.x * Sp::CPB;
+  const int d = d0 + ch;
+  const bool live = d < a.d;
+  const int dc = live ? d : a.d - 1;  // lanes past D read the last channel
+
+  // the first tile's copies go out before anything else is read
+  stage<N>(tiles[0], a, bi, d0, 0);
+  cp_async_commit();
+
+  // A in the log2 domain: exp(dt A) = exp2(dt (A log2 e))
+  float a2[NPT];
+  load_vec<NPT>(a2, a.a_neg + (long long)dc * N + n0);
+#pragma unroll
+  for (int i = 0; i < NPT; ++i) a2[i] *= 1.4426950408889634f;
+
+  float h[NPT];
+  load_vec<NPT>(h, a.h0 + ((long long)bi * a.d + dc) * N + n0);
+
+  int buf = 0;
+  for (int t0 = 0; t0 < a.s; t0 += kSteps) {
+    if (t0 + kSteps < a.s) {
+      stage<N>(tiles[buf ^ 1], a, bi, d0, t0 + kSteps);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const FusedTile<N>& tl = tiles[buf];
+    const int steps = min(kSteps, a.s - t0);
+#pragma unroll 4
+    for (int j = 0; j < steps; ++j) {
+      const float dtv = tl.dt[j][ch];
+      const float dx = dtv * tl.x[j][ch];
+      float bv[NPT], cv[NPT];
+      load_vec<NPT>(bv, &tl.b[j][n0]);
+      load_vec<NPT>(cv, &tl.c[j][n0]);
+      float yv = 0.f;
+#pragma unroll
+      for (int i = 0; i < NPT; ++i) {
+        h[i] = fmaf(exp2f(dtv * a2[i]), h[i], dx * bv[i]);
+        yv = fmaf(h[i], cv[i], yv);
+      }
+      y_part[j][ch][sub] = yv;
+    }
+    __syncthreads();  // tiles[buf] read, and the tile's y shares written
+    // y of the tile's steps, the channel's shares summed, stored coalesced
+    // across the block's channels
+#pragma unroll
+    for (int r = 0; r < kSteps * Sp::CPB / kThreads; ++r) {
+      const int i = tid + r * kThreads;
+      const int j = i / Sp::CPB, c = i % Sp::CPB;
+      if (j < steps && d0 + c < a.d) {
+        float yv = y_part[j][c][0];
+#pragma unroll
+        for (int k = 1; k < TPC; ++k) yv += y_part[j][c][k];
+        a.y[((long long)bi * a.s + t0 + j) * a.d + d0 + c] = yv;
+      }
+    }
+    buf ^= 1;
+  }
+
+  if (live) {
+    store_vec<NPT>(a.h_last + ((long long)bi * a.d + d) * N + n0, h);
+  }
+}
+
+template <int N>
+int launch_fused(const FusedArgs& a, int bsz, cudaStream_t stream) {
+  const int blocks_d = (a.d + Split<N>::CPB - 1) / Split<N>::CPB;
+  fused_scan_kernel<N><<<dim3(blocks_d, bsz), kThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 bool sizes_ok(int bsz, int s, int d) {
   return bsz >= 1 && bsz < 65536 && s >= 1 && d >= 1;
+}
+
+// The kernels at state size n, for occupancy.
+const void* pallas_kernel(int n) {
+  switch (n) {
+    case 1: return reinterpret_cast<const void*>(pallas_scan_kernel<1>);
+    case 2: return reinterpret_cast<const void*>(pallas_scan_kernel<2>);
+    case 4: return reinterpret_cast<const void*>(pallas_scan_kernel<4>);
+    case 8: return reinterpret_cast<const void*>(pallas_scan_kernel<8>);
+    case 16: return reinterpret_cast<const void*>(pallas_scan_kernel<16>);
+    case 32: return reinterpret_cast<const void*>(pallas_scan_kernel<32>);
+    default: return nullptr;
+  }
+}
+
+const void* fused_kernel(int n) {
+  switch (n) {
+    case 1: return reinterpret_cast<const void*>(fused_scan_kernel<1>);
+    case 2: return reinterpret_cast<const void*>(fused_scan_kernel<2>);
+    case 4: return reinterpret_cast<const void*>(fused_scan_kernel<4>);
+    case 8: return reinterpret_cast<const void*>(fused_scan_kernel<8>);
+    case 16: return reinterpret_cast<const void*>(fused_scan_kernel<16>);
+    case 32: return reinterpret_cast<const void*>(fused_scan_kernel<32>);
+    default: return nullptr;
+  }
 }
 
 }  // namespace
@@ -240,16 +429,38 @@ extern "C" int selective_scan_fused_f32(const float* dt, const float* x,
                                         int s, int d, int n,
                                         cudaStream_t stream) {
   if (!sizes_ok(bsz, s, d)) return cudaErrorInvalidValue;
-  const FusedInputs in{dt, x, bmat, cmat, 0.f};
-  const Out out{a_neg, h0, y, h_last};
+  const FusedArgs a{dt, x, bmat, cmat, a_neg, h0, y, h_last, s, d};
   switch (n) {
-    case 1: launch_fused<1>(in, out, bsz, s, d, stream); break;
-    case 2: launch_fused<2>(in, out, bsz, s, d, stream); break;
-    case 4: launch_fused<4>(in, out, bsz, s, d, stream); break;
-    case 8: launch_fused<8>(in, out, bsz, s, d, stream); break;
-    case 16: launch_fused<16>(in, out, bsz, s, d, stream); break;
-    case 32: launch_fused<32>(in, out, bsz, s, d, stream); break;
+    case 1: return launch_fused<1>(a, bsz, stream);
+    case 2: return launch_fused<2>(a, bsz, stream);
+    case 4: return launch_fused<4>(a, bsz, stream);
+    case 8: return launch_fused<8>(a, bsz, stream);
+    case 16: return launch_fused<16>(a, bsz, stream);
+    case 32: return launch_fused<32>(a, bsz, stream);
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
+}
+
+// Occupancy of one kernel at state size n (kernel 0: the Pallas-contract
+// entry's, 1: the fused entry's): out[0] registers a thread, out[1] static
+// and out[2] dynamic shared memory (bytes) a block, out[3] resident blocks
+// an SM, out[4] threads a block.  Returns a CUDA error.
+extern "C" int selective_scan_kernel_info(int kernel, int n, int* out) {
+  const void* fn = kernel == 0   ? pallas_kernel(n)
+                   : kernel == 1 ? fused_kernel(n)
+                                 : nullptr;
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads,
+                                                      0);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.sharedSizeBytes;
+  out[2] = 0;
+  out[3] = blocks;
+  out[4] = kThreads;
+  return 0;
 }

@@ -2,10 +2,12 @@
 ``nvcc`` and load it with ``ctypes``.
 
 The library goes to ``build/kernels/`` at the repository root (listed in
-``.gitignore``), named by a hash of the source and the compiler flags, so a
-changed source is rebuilt and an unchanged one is loaded as it is.  The
-build runs on first use, never at import: importing the port needs no
-compiler.
+``.gitignore``), named by a hash of everything that shapes the build: the
+source, every header of ``csrc/`` it includes (``#include "x.cuh"``, and
+theirs in turn), and the compiler flags (``NVCC_FLAGS``, where any ``-I``
+or ``-l`` goes too).  A changed source, header or flag is rebuilt; an
+unchanged one is loaded as it is.  The build runs on first use,
+never at import: importing the port needs no compiler.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -21,6 +24,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
 def nvcc() -> str:
@@ -35,10 +39,27 @@ def nvcc() -> str:
                        "CUDA toolkit's nvcc")
 
 
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes, directly
+    or through another header, each once, in the order first reached."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            cand = path.parent / inc.decode()
+            if cand.exists():
+                todo.append(cand)
+    return seen
+
+
 def library_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def load(name: str) -> ctypes.CDLL:

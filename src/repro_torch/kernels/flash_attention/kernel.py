@@ -20,6 +20,8 @@ from .. import _build
 HEAD_DIMS = (16, 32, 64, 128)
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
+# the C entry's code for a TMA descriptor that cuTensorMapEncodeTiled refused
+_ERR_TENSOR_MAP = -1
 
 _lib = None
 _launches = 0
@@ -36,6 +38,9 @@ def _library() -> ctypes.CDLL:
                            + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                               ctypes.c_void_p])
             fn.restype = ctypes.c_int
+        lib.flash_attention_kernel_info.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.flash_attention_kernel_info.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -43,6 +48,21 @@ def _library() -> ctypes.CDLL:
 def build() -> None:
     """Compile (if needed) and load the kernel's library."""
     _library()
+
+
+def kernel_info(dtype: torch.dtype, dh: int) -> dict:
+    """Registers a thread, static and dynamic shared memory (bytes) a
+    block, resident blocks an SM and threads a block of the kernel behind
+    ``dtype``'s entry at head size ``dh``, from ``cudaFuncGetAttributes``
+    and ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    out = (ctypes.c_int * 5)()
+    rc = _library().flash_attention_kernel_info(
+        int(dtype == torch.bfloat16), dh, out)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_kernel_info failed: CUDA error "
+                           f"{rc}")
+    return dict(zip(("registers", "static_smem", "dynamic_smem",
+                     "blocks_per_sm", "threads"), out))
 
 
 def launch_count() -> int:
@@ -65,7 +85,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     unit stride along Dh (other strides are free), H a multiple of KV, Dh in
     ``HEAD_DIMS``, ``q_offset >= 0`` (the absolute position of query row 0
     under the causal mask).  Returns a contiguous [B, Sq, H, Dh] tensor in
-    q's dtype.  Raises on anything else."""
+    q's dtype.  bf16 tensors are read by TMA, which also needs every base
+    address and every stride 16-byte aligned.  Raises on anything else."""
     global _launches
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
@@ -87,6 +108,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got {dh}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention_fwd needs unit stride along Dh")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(st * 2 % 16 for st in t.stride()[:3]):
+                raise ValueError(
+                    f"flash_attention_fwd: bf16 {name} needs a 16-byte "
+                    f"aligned base and strides (TMA), got strides "
+                    f"{t.stride()} at offset {t.data_ptr() % 16}")
     q_offset = int(q_offset)
     if q_offset < 0 or q_offset >= 1 << 30:
         raise ValueError(f"flash_attention_fwd: q_offset {q_offset} out of "
@@ -100,6 +128,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             b, sq, skv, h, kv, dh, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], int(bool(causal)), q_offset, dh ** -0.5, stream)
+    if rc == _ERR_TENSOR_MAP:
+        raise RuntimeError("flash_attention_fwd: cuTensorMapEncodeTiled "
+                           "refused a TMA descriptor for q, k or v")
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
                            f"{rc}")

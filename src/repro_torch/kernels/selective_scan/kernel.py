@@ -4,10 +4,9 @@ on a CUDA device.
 Port of the Pallas kernel ``src/repro/kernels/selective_scan/kernel.py``
 (``_scan_kernel`` / ``selective_scan``), and of the jnp scan the
 reference's model runs in its place (``src/repro/models/ssm.py::
-_fused_scan``): two entry points of one CUDA source that share its
-recurrence.  The source note in the ``.cu`` file says what bounds it on an
-H100 and how it is laid out.  The library is built with ``nvcc`` on the
-first launch, not at import.
+_fused_scan``): two entry points of one CUDA source.  The source note in
+the ``.cu`` file says what bounds it on an H100 and how it is laid out.
+The library is built with ``nvcc`` on the first launch, not at import.
 """
 from __future__ import annotations
 
@@ -20,6 +19,9 @@ from .. import _build
 STATE_SIZES = (1, 2, 4, 8, 16, 32)   # N: a power of two that divides 32
 
 ENTRIES = ("selective_scan_f32", "selective_scan_fused_f32")
+
+# the kernels of the library, by the index selective_scan_kernel_info takes
+KERNELS = ("pallas", "fused")
 
 _lib = None
 _launches = dict.fromkeys(ENTRIES, 0)
@@ -37,6 +39,9 @@ def _library() -> ctypes.CDLL:
                                                  + [ctypes.c_int] * 4
                                                  + [ctypes.c_void_p])
         lib.selective_scan_fused_f32.restype = ctypes.c_int
+        lib.selective_scan_kernel_info.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.selective_scan_kernel_info.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -44,6 +49,20 @@ def _library() -> ctypes.CDLL:
 def build() -> None:
     """Compile (if needed) and load the kernel's library."""
     _library()
+
+
+def kernel_info(kernel: str, n: int) -> dict:
+    """Registers a thread, static and dynamic shared memory (bytes) a
+    block, resident blocks an SM and threads a block of one of ``KERNELS``
+    at state size ``n``, from ``cudaFuncGetAttributes`` and
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    out = (ctypes.c_int * 5)()
+    rc = _library().selective_scan_kernel_info(KERNELS.index(kernel), n, out)
+    if rc != 0:
+        raise RuntimeError(f"selective_scan_kernel_info failed: CUDA error "
+                           f"{rc}")
+    return dict(zip(("registers", "static_smem", "dynamic_smem",
+                     "blocks_per_sm", "threads"), out))
 
 
 def launch_count() -> int:
@@ -122,7 +141,8 @@ def selective_scan_fused_f32(dt: torch.Tensor, x: torch.Tensor,
     """(y [B,S,D], h_last [B,D,N]) of the scan with a_t = exp(dt * a_neg)
     and b_t = (dt * x) * bmat computed in the kernel, from h0.  dt, x
     [B,S,D], bmat, cmat [B,S,N], a_neg [D,N], h0 [B,D,N]: float32,
-    contiguous, on one CUDA device.  Raises on anything else."""
+    contiguous, 16-byte aligned, on one CUDA device.  Raises on anything
+    else."""
     if dt.dim() != 3 or a_neg.dim() != 2:
         raise ValueError(f"selective_scan_fused_f32: dt {tuple(dt.shape)}, "
                          f"a_neg {tuple(a_neg.shape)}: expected [B, S, D] "
@@ -135,6 +155,10 @@ def selective_scan_fused_f32(dt: torch.Tensor, x: torch.Tensor,
                   "a_neg": a_neg, "h0": h0},
                  {"dt": (bsz, s, d), "x": (bsz, s, d), "bmat": (bsz, s, n),
                   "cmat": (bsz, s, n), "a_neg": (d, n), "h0": (bsz, d, n)})
+    for key, t in (("a_neg", a_neg), ("h0", h0)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"selective_scan_fused_f32 reads {key} as "
+                             f"float4s and needs it 16-byte aligned")
     fn = _library().selective_scan_fused_f32
     y = torch.empty((bsz, s, d), dtype=torch.float32, device=dev)
     h_last = torch.empty((bsz, d, n), dtype=torch.float32, device=dev)

@@ -4,9 +4,11 @@ against the CPU run, the flash-attention kernel against its plain version,
 a CUDA serving loop through the kernel against the same loop through the
 plain attention, and both selective-scan entry points against their plain
 versions with a Mamba serving loop through the kernel against the chunked
-scan.  Every test is marked ``gpu`` and skips without a
-card; this file imports neither jax nor ``repro``, so it also runs where
-only PyTorch is installed:
+scan; the bf16 flash kernel at its tile edges and on strided views, the
+fused scan across its tile borders, and each kernel's occupancy.  Every
+test is marked ``gpu`` and skips without a card; this file imports
+neither jax nor ``repro``, so it also runs where only PyTorch is
+installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -110,6 +112,71 @@ def test_flash_kernel_against_plain(cuda, b, sq, skv, h, kv, dh, causal,
                                atol=FA_TOL[dtype])
 
 
+def _bf16_qkv(cuda, seed, b, sq, skv, h, kv, dh):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(b, s, n, dh, generator=gen).bfloat16().to(cuda)
+            for s, n in ((sq, h), (skv, kv), (skv, kv))]
+
+
+def _hold_flash(q, k, v, causal, off):
+    before = fa_kernel.launch_count()
+    got = flash_attention(q, k, v, causal=causal, q_offset=off)
+    torch.cuda.synchronize()
+    assert fa_kernel.launch_count() == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = naive_attention(q, k, v, causal=causal, q_offset=off)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+# the tensor-core kernel's tile edges (128 query rows, 64 keys a tile), on
+# every Dh, with GQA groups of 1, 4 and 8 in turn
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 129, 1000])
+def test_flash_bf16_tile_edges(cuda, s, dh):
+    group = (1, 4, 8)[(s + dh // 16) % 3]
+    _hold_flash(*_bf16_qkv(cuda, s + dh, 1, s, s, 8, 8 // group, dh),
+                True, 0)
+
+
+# b, sq, skv, causal, q_offset: queries after cached positions (Sq < Skv),
+# and non-causal ragged shapes either way
+@pytest.mark.parametrize("b,sq,skv,causal,off", [
+    (1, 1, 129, True, 128), (2, 63, 1000, True, 937), (1, 65, 129, True, 64),
+    (1, 100, 1000, True, 500), (2, 64, 1000, False, 0),
+    (1, 129, 63, False, 0), (1, 1, 65, False, 0)])
+def test_flash_bf16_offsets_and_noncausal(cuda, b, sq, skv, causal, off):
+    _hold_flash(*_bf16_qkv(cuda, sq + skv, b, sq, skv, 8, 2, 128), causal,
+                off)
+
+
+def test_flash_bf16_takes_an_aligned_view_and_refuses_a_misaligned_one(cuda):
+    """q, k, v cut from one fused [B, S, H + 2 KV, Dh] buffer: strided,
+    16-byte aligned, taken by TMA.  A view one element off a 16-byte
+    boundary raises before any launch."""
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    buf = torch.randn(2, 100, 48, 128, generator=gen).bfloat16().to(cuda)
+    q, k, v = buf[:, :, :32], buf[:, :, 32:40], buf[:, :, 40:48]
+    assert not q.is_contiguous()
+    _hold_flash(q, k, v, True, 0)
+    wide = torch.randn(1, 100, 32, 136, generator=gen).bfloat16().to(cuda)
+    kv = wide[:, :, :8, 8:136]
+    before = fa_kernel.launch_count()
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(wide[..., 1:129], kv, kv)
+    assert fa_kernel.launch_count() == before
+
+
+def test_kernel_occupancy_is_reported(cuda):
+    for dh in fa_kernel.HEAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            info = fa_kernel.kernel_info(dtype, dh)
+            assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+    for name in scan_kernel.KERNELS:
+        info = scan_kernel.kernel_info(name, 16)
+        assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+
+
 def test_flash_kernel_refuses_other_head_dims(cuda):
     q = torch.zeros(1, 8, 2, 48, device=cuda)
     with pytest.raises(ValueError, match="Dh"):
@@ -184,6 +251,22 @@ def test_fused_scan_kernel_against_plain(cuda, b, s, d, n, h0_scale):
     args = _scan_inputs(cuda, s + d, b, s, d, n, h0_scale)
     before = scan_kernel.launch_count()
     y, h_last = selective_scan_fused(*args)
+    torch.cuda.synchronize()
+    assert scan_kernel.launch_count() == before + 1
+    want_y, want_h = fused_scan_ref(*args)
+    torch.testing.assert_close(y, want_y, **SCAN_TOL)
+    torch.testing.assert_close(h_last, want_h, **SCAN_TOL)
+
+
+# the fused kernel across the borders of its shared-memory tiles of 16
+# steps, at every N, from a nonzero state, at a ragged D
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 2049])
+def test_fused_scan_kernel_across_tile_borders(cuda, s, b, n):
+    args = _scan_inputs(cuda, s + n, b, s, 8190, n, 0.5)
+    before = scan_kernel.launch_count()
+    y, h_last = scan_kernel.selective_scan_fused_f32(*args)
     torch.cuda.synchronize()
     assert scan_kernel.launch_count() == before + 1
     want_y, want_h = fused_scan_ref(*args)

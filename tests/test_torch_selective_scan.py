@@ -96,6 +96,38 @@ def test_fused_scan_equals_the_materialised_recurrence():
     torch.testing.assert_close(y, selective_scan_ref(a, b, cmat), **TOL)
 
 
+# the plain fused scan's own chunk borders against the reference's chunked
+# scan cut the same way: S in {1, chunk - 1, chunk, chunk + 1} and several
+# chunks with a ragged last one, from a nonzero h0
+@pytest.mark.parametrize("b,s,d,n,chunk", [
+    (2, 1, 12, 16, 16), (1, 15, 10, 16, 16), (2, 16, 10, 8, 16),
+    (1, 17, 10, 4, 16), (2, 100, 9, 32, 16), (1, 257, 6, 16, 64),
+])
+def test_fused_scan_chunk_borders_against_reference(b, s, d, n, chunk):
+    arrays = _fused_inputs(7 * s + d, b, s, d, n, 0.5)
+    dt, x, bmat, cmat, a_neg, h0 = arrays
+    y, h_last = fused_scan_ref(*_t(*arrays), chunk=chunk)
+    assert y.shape == (b, s, d) and h_last.shape == (b, d, n)
+    want_y, want_h = _fused_scan(*(jnp.asarray(v) for v in
+                                   (dt, bmat, cmat, x, a_neg, h0)), chunk)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), **TOL)
+    np.testing.assert_allclose(h_last.numpy(), np.asarray(want_h), **TOL)
+
+
+def test_fused_scan_one_step_is_the_decode_update():
+    """At S = 1 (a decode tick) the scan is one step from the cached state:
+    h = exp(dt A) h0 + dt x B and y = sum_n h C, in float64 here."""
+    dt, x, bmat, cmat, a_neg, h0 = _t(*_fused_inputs(9, 4, 1, 24, 16, 1.0))
+    y, h_last = fused_scan_ref(dt, x, bmat, cmat, a_neg, h0)
+    d64 = [t.double() for t in (dt, x, bmat, cmat, a_neg, h0)]
+    dt, x, bmat, cmat, a_neg, h0 = d64
+    want_h = (torch.exp(dt[:, 0, :, None] * a_neg) * h0
+              + (dt * x)[:, 0, :, None] * bmat[:, 0, None, :])
+    want_y = torch.sum(want_h * cmat[:, 0, None, :], dim=-1)[:, None]
+    torch.testing.assert_close(h_last, want_h.float(), **TOL)
+    torch.testing.assert_close(y, want_y.float(), **TOL)
+
+
 def test_fused_scan_chunk_size_does_not_change_the_result():
     arrays = _t(*_fused_inputs(4, 1, 70, 12, 4, 0.3))
     y8, h8 = fused_scan_ref(*arrays, chunk=8)
