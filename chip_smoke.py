@@ -7,11 +7,21 @@ Phases, each printed with its wall time:
 
 1. the card: name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. the build of every hand-written kernel with ``nvcc`` for sm_90a;
-3. each kernel against its plain PyTorch version on the card, at ragged and
-   square shapes (bitwise), and ``apsp`` against the numpy hop distances on
-   every topology of the ported scenarios (exactly); kernel and plain times
-   at the main path's shape, as device time from a profiler trace and per
-   call through the wrapper by CUDA events;
+3. the min-plus kernel against its plain PyTorch version on the card: one
+   product at ragged, tile-edge and square shapes at every tile (bitwise);
+   the one-launch APSP (``apsp``) against the numpy hop distances on every
+   topology of the ported scenarios (exactly), with the launches and
+   squarings each call ran (1 launch of 3 squarings on leaf-spine-xl); the
+   tile chosen, each entry's registers, shared memory and blocks an SM;
+   kernel and plain times of one product and of xl's APSP beside the bound
+   (pairs x 2 instructions a pair over the CUDA cores' issue rate, for the
+   squarings the distances need: ceil(log2 diameter), without the one
+   that confirms them);
+3b. the same kernel at fat_tree(32) (n = 9473, a k = 32 fat tree from
+   ``repro_torch.core.topology``): the APSP bitwise against the plain
+   squarings on the card at the count the kernel ran (4), one product
+   bitwise against the plain second squaring, and the times of the
+   product and of the APSP beside their bounds;
 4. the paper's use case (paper-fabric, SDN vs legacy, job_concurrency=2)
    on CUDA: SDN ahead on transmission, completion and energy, and the final
    states equal to the same run on the CPU; how far a water-fill run's
@@ -19,7 +29,9 @@ Phases, each printed with its wall time:
 5. the main path at full size: ``leaf-spine-xl`` under the profile policy
    (SDN, least-used, job_concurrency=4) through ``Experiment(...).run()``
    on CUDA, with every kernel's launch count reset just before and read
-   just after; it must reach 1202 steps unstalled and equal the CPU run.
+   just after; it must reach 1202 steps unstalled and equal the CPU run,
+   and its route table must take exactly one min-plus launch of 3
+   squarings.
    ``paper-fabric`` and ``leaf-spine`` run under the same policy too; each
    of the three prints its steps/s and, from a profiler trace of a second
    run, the device's busy time and idle share;
@@ -81,6 +93,7 @@ from __future__ import annotations
 import concurrent.futures
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -96,6 +109,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # 1.98 GHz boost clock (CUDA programming guide's throughput table, cc 9.0)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+# min-plus: an (add, min) pair is two float32 instructions (FADD and
+# FMNMX; no instruction fuses them), against the CUDA cores' issue rate of
+# 128 lanes a clock on each of 132 SMs at the 1.98 GHz boost clock (the
+# 67 TFLOP/s above counts each FMA lane as two operations)
+INSTR_PER_S = 128 * 132 * 1.98e9
+MINPLUS_INSTR_PER_PAIR = 2
 PEAK_BF16_OPS_PER_S = 989e12
 PEAK_SFU_PER_S = 132 * 16 * 1.98e9
 
@@ -138,8 +157,13 @@ MAMBA_LOGIT_TOL = 0.05
 
 
 DESIGN = {
-    "minplus": "32x32 output tiles staged through shared memory, float32 "
-               "min/add on the CUDA cores",
+    "minplus": "one tile routine: BM x BN output tiles (16-128, the largest "
+               "that gives every SM a tile), TM x TN register micro-tiles "
+               "(2-8) fed by 16-byte shared-memory loads, k-slabs of 16 "
+               "staged by cp.async two in flight; the APSP in one "
+               "cooperative persistent launch, ping-pong buffers, a grid "
+               "barrier between squarings, stopping when a squaring "
+               "changes nothing",
     "flash": "bf16: wgmma for S = Q K^T (smem x smem) and O += P V (P in "
              "registers, V MN-major in smem), TMA-fed K/V ring of 2 stages "
              "on mbarriers, 2 consumer warpgroups x 64 rows + 1 producer "
@@ -222,10 +246,11 @@ def cuda_ms(fn, warmup: int = 5, repeats: int = 15, inner: int = 20):
     return statistics.median(samples)
 
 
-def device_ms(fn, calls: int = 1):
+def device_ms(fn, calls: int = 1, name: str | None = None):
     """Summed device time (ms) of every kernel ``calls`` runs of ``fn``
-    launch, per run, from a ``torch.profiler`` trace of the card; ``None``
-    when the trace holds no device time.  ``fn`` must be warm already.
+    launch (only those whose name holds ``name``, if given), per run, from
+    a ``torch.profiler`` trace of the card; ``None`` when the trace holds
+    no device time.  ``fn`` must be warm already.
     After phase 5's long traces the sums for one flash launch came out
     short (0.56 ms for a 2.2 ms kernel) while a fresh process's trace
     agreed with CUDA events, so the flash kernel's own time comes from
@@ -238,7 +263,8 @@ def device_ms(fn, calls: int = 1):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if name is None or name in e.key)
     return total_us / 1e3 / calls if total_us > 0 else None
 
 
@@ -326,6 +352,45 @@ def scan_work(b, s, d, n, fused: bool):
         return nbytes, 6 * b * s * d * n + b * s * d, b * s * d * n
     return 4 * (2 * b * s * d * n + b * s * n + b * s * d), \
         4 * b * s * d * n, 0
+
+
+def minplus_bound(n, squarings, apsp=False):
+    """(bound ms, "bytes" or "operations") of ``squarings`` n^3 float32
+    min-plus products: the larger of the bytes (one product: two operands
+    in, one out; an APSP: the matrix in, the distances out) over HBM
+    bandwidth and the instructions over the CUDA cores' issue rate."""
+    nbytes = 4 * n * n * (2 if apsp else 3)
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = squarings * n ** 3 * MINPLUS_INSTR_PER_PAIR / INSTR_PER_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def squarings_needed(dist) -> int:
+    """Squarings an APSP of these hop distances needs: after s squarings
+    every path of up to 2^s edges is found, so ceil(log2 diameter).  The
+    kernel runs one more, which changes nothing and stops it."""
+    diameter = float(dist[dist.isfinite()].max())
+    return math.ceil(math.log2(diameter)) if diameter > 1 else 0
+
+
+def counted(kern, fn):
+    """(fn's result, the launches of each of ``kern``'s entries that fn
+    made): the counts read just before and just after the call."""
+    before = kern.launch_counts()
+    out = fn()
+    after = kern.launch_counts()
+    return out, {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+
+
+def max_abs_err(got, want) -> float:
+    """Largest |got - want| (tensors) where ``want`` is finite; 0.0 if no
+    entry is."""
+    fin = want.isfinite()
+    if not bool(fin.any()):
+        return 0.0
+    return float((got[fin] - want[fin]).abs().max())
 
 
 def bound(nbytes, ops, exps=0):
@@ -517,7 +582,9 @@ def main() -> int:
     from repro_torch.api import Experiment, PolicyConfig
     from repro_torch.core import ROUTE_LEGACY, ROUTE_SDN, TRAFFIC_WATERFILL
     from repro_torch.core.routing import hop_distances_np
-    from repro_torch.kernels.tropical_apsp import (apsp, minplus_matmul,
+    from repro_torch.core.topology import fat_tree
+    from repro_torch.kernels.tropical_apsp import (apsp, apsp_early_stop_ref,
+                                                   apsp_ref, minplus_matmul,
                                                    minplus_matmul_ref)
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      naive_attention)
@@ -564,54 +631,185 @@ def main() -> int:
 
     scenarios = ("paper-fabric", "leaf-spine", "fat-tree", "canonical-tree",
                  "leaf-spine-xl")
-    with phase("3 kernels against their plain versions"):
+    with phase("3 min-plus against its plain versions"):
         rng = np.random.RandomState(0)
         max_err = 0.0
         shapes = [(24, 24, 24), (37, 37, 37), (153, 153, 153),
                   (257, 257, 257), (1024, 1024, 1024), (1, 5, 3),
-                  (100, 37, 153), (257, 1024, 24), (33, 65, 31)]
+                  (100, 37, 153), (257, 1024, 24), (33, 65, 31),
+                  (16, 16, 16), (17, 17, 17), (128, 300, 129), (129, 1, 127)]
         for m, k, n in shapes:
             x = rng.uniform(0, 10, (m, k)).astype(np.float32)
             y = rng.uniform(0, 10, (k, n)).astype(np.float32)
             x[rng.rand(m, k) < 0.1] = np.inf
             y[rng.rand(k, n) < 0.1] = np.inf
             xd, yd = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
-            got = minplus_matmul(xd, yd)
-            torch.cuda.synchronize()
             want = minplus_matmul_ref(xd, yd)
-            check(torch.equal(got, want),
-                  f"minplus {m}x{k}x{n}: kernel != plain version")
-            fin = torch.isfinite(want)
-            if bool(fin.any()):
-                max_err = max(max_err, float((got[fin] - want[fin]).abs()
-                                             .max()))
-            print(f"minplus {m}x{k}x{n}: bitwise equal")
+            for tile in (None,) + minplus_kernel.TILES:
+                got = minplus_kernel.minplus_f32(xd, yd, tile=tile)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"minplus {m}x{k}x{n} tile {tile}: kernel != plain")
+                max_err = max(max_err, max_abs_err(got, want))
+            print(f"minplus {m}x{k}x{n}: bitwise equal at every tile "
+                  f"(default {minplus_kernel.tile_for(m, n)})")
+        squarings, apsp_err = {}, 0.0
         for name in scenarios:
-            topo = get_scenario(name).topology()
-            hop = topo.hop_matrix()
-            got = apsp(torch.from_numpy(hop).to(dev)).cpu().numpy()
-            check(np.array_equal(got.astype(np.float64),
-                                 hop_distances_np(hop)),
+            hop = get_scenario(name).topology().hop_matrix()
+            want = torch.from_numpy(hop_distances_np(hop).astype(np.float32))
+            hd = torch.from_numpy(hop).to(dev)
+            got, made = counted(minplus_kernel, lambda: apsp(hd))
+            ran = int(minplus_kernel.last_squarings())
+            got = got.cpu()
+            check(torch.equal(got, want),
                   f"apsp on {name}: != numpy hop distances")
-            print(f"apsp on {name} (n={hop.shape[0]}): equal to numpy")
+            apsp_err = max(apsp_err, max_abs_err(got, want))
+            check(made == {"apsp_f32": 1},
+                  f"apsp on {name}: launches {made}, expected one apsp_f32")
+            _, want_ran = apsp_early_stop_ref(hd)
+            check(ran == want_ran, f"apsp on {name}: {ran} squarings, the "
+                  f"plain loop runs {want_ran}")
+            squarings[name] = ran
+            print(f"apsp on {name} (n={hop.shape[0]}): equal to numpy in "
+                  f"launches {made} of {ran} squarings")
+        check(squarings["leaf-spine-xl"] == 3,
+              f"leaf-spine-xl: {squarings['leaf-spine-xl']} squarings, "
+              f"expected 3")
+        floor_ms = fenced_ms(lambda: None)
         # times at the main path's shape: the route table of leaf-spine-xl
-        # (an operand of the third squaring: hop distances up to 4)
-        xl_hop = get_scenario("leaf-spine-xl").topology().hop_matrix()
+        xl_hop = torch.from_numpy(
+            get_scenario("leaf-spine-xl").topology().hop_matrix()).to(dev)
         n = xl_hop.shape[0]
-        d = apsp(torch.from_numpy(xl_hop).to(dev), steps=2)
+        tile = minplus_kernel.tile_for(n)
+        mp_info = {f"{entry}/{t}": minplus_kernel.kernel_info(entry, t)
+                   for entry in minplus_kernel.ENTRIES
+                   for t in minplus_kernel.TILES}
+        for key, occ in mp_info.items():
+            print(f"minplus {key}: {occ['registers']} registers a thread, "
+                  f"{occ['static_smem']} bytes of shared memory, "
+                  f"{occ['blocks_per_sm']} blocks of {occ['threads']} "
+                  f"threads an SM")
+        xl_grid = minplus_kernel.persistent_grid("apsp_f32", tile, n, dev)
+        print(f"tile at n = {n}: {tile} x {tile}, "
+              f"{math.ceil(n / tile) ** 2} tiles; the APSP's persistent "
+              f"grid: {xl_grid} blocks")
+        d = apsp(xl_hop, steps=1)  # an operand of the second squaring
         kernel_call_ms = cuda_ms(lambda: minplus_matmul(d, d))
         plain_call_ms = cuda_ms(lambda: minplus_matmul_ref(d, d))
         kernel_ms = device_ms(lambda: minplus_matmul(d, d), calls=50)
         plain_ms = device_ms(lambda: minplus_matmul_ref(d, d), calls=50)
-        bytes_moved = 4 * (n * n + n * n + n * n)
-        ops = 2 * n * n * n
-        bound_bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
-        bound_ops_ms = ops / PEAK_F32_OPS_PER_S * 1e3
-        print(f"minplus {n}x{n}x{n}: device time per call: kernel "
-              f"{kernel_ms} ms, plain {plain_ms} ms; per call through the "
-              f"wrapper (CUDA events, back to back): kernel "
-              f"{kernel_call_ms:.6f} ms, plain {plain_call_ms:.6f} ms; "
-              f"bound {max(bound_bytes_ms, bound_ops_ms):.6f} ms")
+        kernel_fenced_ms = fenced_ms(lambda: minplus_matmul(d, d)) - floor_ms
+        mp_bound = minplus_bound(n, 1)
+        print(f"minplus {n}x{n}x{n} (tile {tile}): device time per call: "
+              f"kernel {kernel_ms} ms (profiler), {kernel_fenced_ms} ms "
+              f"(fenced less floor {floor_ms}), plain {plain_ms} ms; per "
+              f"call through the wrapper (CUDA events, back to back): kernel"
+              f" {kernel_call_ms:.6f} ms, plain {plain_call_ms:.6f} ms; "
+              f"bound {mp_bound[0]:.6f} ms by {mp_bound[1]}")
+        xl_got, xl_made = counted(minplus_kernel, lambda: apsp(xl_hop))
+        xl_ran = int(minplus_kernel.last_squarings())
+        xl_need = squarings_needed(xl_got)
+        check(xl_ran == xl_need + 1, f"leaf-spine-xl: {xl_ran} squarings "
+              f"for a need of {xl_need}, expected one more")
+        xl_apsp = {"launches_per_call": xl_made, "squarings": xl_ran,
+                   "squarings_needed": xl_need,
+                   "max_abs_err": max_abs_err(xl_got,
+                                              apsp_ref(xl_hop, steps=3)),
+                   "call_ms": cuda_ms(lambda: apsp(xl_hop)),
+                   "ms": fenced_ms(lambda: apsp(xl_hop)) - floor_ms,
+                   "kernel_ms": device_ms(lambda: apsp(xl_hop), calls=20,
+                                          name="apsp_kernel"),
+                   "plain_ms": device_ms(lambda: apsp_ref(xl_hop, steps=3),
+                                         calls=5),
+                   "plain_call_ms": cuda_ms(
+                       lambda: apsp_ref(xl_hop, steps=3), warmup=1,
+                       repeats=5, inner=2)}
+        xl_apsp["bound_ms"], xl_apsp["bound_by"] = minplus_bound(
+            n, xl_need, apsp=True)
+        # the squaring that confirms the distances: a cost of the design,
+        # beside the bound and not in it
+        xl_apsp["bound_as_run_ms"] = minplus_bound(n, xl_ran, apsp=True)[0]
+        print(f"apsp on leaf-spine-xl (n = {n}, launches {xl_made}, "
+              f"{xl_ran} squarings, {xl_need} needed): device time per "
+              f"call {xl_apsp['ms']} ms (fenced less floor; the kernel "
+              f"alone {xl_apsp['kernel_ms']} ms in a profiler trace), "
+              f"{xl_apsp['call_ms']:.6f} ms through the wrapper back to "
+              f"back; plain (3 squarings) {xl_apsp['plain_ms']} ms; bound "
+              f"{xl_apsp['bound_ms']:.6f} ms by {xl_apsp['bound_by']} "
+              f"({xl_apsp['bound_as_run_ms']:.6f} ms with the confirming "
+              f"squaring)")
+
+    with phase("3b min-plus at fat_tree(32) (n = 9473)"):
+        ft_hop = torch.from_numpy(fat_tree(32).hop_matrix()).to(dev)
+        nf = ft_hop.shape[0]
+        ft_tile = minplus_kernel.tile_for(nf)
+        ft = {"shape": [nf, nf], "tile": ft_tile,
+              "grid": minplus_kernel.persistent_grid("apsp_f32", ft_tile, nf,
+                                                     dev),
+              "kernel_info": {e: minplus_kernel.kernel_info(e, ft_tile)
+                              for e in minplus_kernel.ENTRIES}}
+        got, ft_made = counted(minplus_kernel, lambda: apsp(ft_hop))
+        ft_ran = int(minplus_kernel.last_squarings())
+        ft_need = squarings_needed(got)
+        check(ft_made == {"apsp_f32": 1}, f"fat_tree(32): launches "
+              f"{ft_made}, expected one apsp_f32")
+        check(ft_ran == 4 and ft_need == 3, f"fat_tree(32): {ft_ran} "
+              f"squarings for a need of {ft_need}, expected 4 for 3")
+        # the plain squarings one by one (apsp_ref's loop), kept to hold
+        # the kernel's product against the second
+        t0 = time.perf_counter()
+        seq = [ft_hop]
+        for _ in range(ft_ran):
+            seq.append(minplus_matmul_ref(seq[-1], seq[-1]))
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        want = seq[-1]
+        check(torch.equal(got, want),
+              "fat_tree(32): the kernel's distances != the plain version's")
+        check(bool(torch.isfinite(want).all()) and float(want.max()) == 6,
+              "fat_tree(32): not connected with diameter 6")
+        ft_err = max_abs_err(got, want)
+        print(f"fat_tree(32) (n = {nf}, tile {ft_tile}, grid {ft['grid']}): "
+              f"apsp bitwise equal to the plain apsp_ref at {ft_ran} "
+              f"squarings ({plain_s:.3f} s on the card), diameter 6")
+        del got
+        d = seq[1]
+        prod, prod_made = counted(minplus_kernel,
+                                  lambda: minplus_matmul(d, d))
+        check(prod_made == {"minplus_f32": 1} and torch.equal(prod, seq[2]),
+              f"fat_tree(32): the kernel's product != the plain version's "
+              f"(launches {prod_made})")
+        prod_err = max_abs_err(prod, seq[2])
+        print(f"fat_tree(32): one product {nf}^3 bitwise equal to the "
+              f"plain version's second squaring")
+        del prod, seq[2:]
+        fns = {"product": lambda: minplus_matmul(d, d),
+               "apsp": lambda: apsp(ft_hop)}
+        times = {key: [] for key in fns}
+        for key in list(fns) + list(fns)[::-1]:
+            times[key].append(cuda_ms(fns[key], warmup=1, repeats=2,
+                                      inner=1))
+        for key, fn in fns.items():
+            _, made = counted(minplus_kernel, fn)
+            need = 1 if key == "product" else ft_need
+            bound_ms, bound_by = minplus_bound(nf, need,
+                                               apsp=key == "apsp")
+            ft[key] = {"ms": min(times[key]), "ms_all": times[key],
+                       "products_needed": need, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "launches_per_call": made,
+                       "share_of_bound": bound_ms / min(times[key])}
+            print(f"fat_tree(32) {key}: {times[key]} ms (CUDA events, in "
+                  f"turns), launches {made} a call, bound {bound_ms:.3f} "
+                  f"ms by {bound_by} for {need} products: "
+                  f"{ft[key]['share_of_bound']:.3f} of it")
+        ft["product"]["max_abs_err"] = prod_err
+        ft["apsp"]["squarings"] = ft_ran
+        ft["apsp"]["bound_as_run_ms"] = minplus_bound(nf, ft_ran,
+                                                      apsp=True)[0]
+        ft["plain_s"] = plain_s
+        del d, seq, ft_hop, want, fns
+        gc.collect()
+        torch.cuda.empty_cache()
 
     with phase("4 paper use case on CUDA (SDN vs legacy)"):
         pols = [("sdn", PolicyConfig(routing=ROUTE_SDN, job_concurrency=2)),
@@ -667,6 +865,8 @@ def main() -> int:
             if main_path:
                 main_s = time.perf_counter() - t_main
                 launches = minplus_kernel.launch_count()
+                mp_launches = minplus_kernel.launch_counts()
+                main_squarings = int(minplus_kernel.last_squarings())
                 xl_fa_launches = fa_kernel.launch_count()
                 xl_scan_launches = scan_kernel.launch_count()
                 peak = torch.cuda.max_memory_allocated()
@@ -686,11 +886,16 @@ def main() -> int:
             cpu = Experiment(name, profile, device="cpu").run()
             states_match(res.states, cpu.states, name)
             print(f"{name}: final state equals the CPU run")
-        check(launches > 0, "the main path launched no minplus kernel")
+        check(mp_launches == {"minplus_f32": 0, "apsp_f32": 1}
+              and main_squarings == 3,
+              f"leaf-spine-xl's route table took min-plus launches "
+              f"{mp_launches} of {main_squarings} squarings, expected one "
+              f"apsp_f32 of 3")
         check(xl_fa_launches == 0, "the simulator launched flash attention")
         check(xl_scan_launches == 0, "the simulator launched the scan")
         print(f"leaf-spine-xl main path: {main_s:.3f} s from Experiment() "
-              f"to the final state, minplus launches {launches}, peak "
+              f"to the final state, minplus launches {launches} "
+              f"({main_squarings} squarings), peak "
               f"device memory {peak / 2**20:.1f} MiB")
 
     with phase("6 flash attention against its plain version"):
@@ -1013,18 +1218,34 @@ def main() -> int:
         "source": "src/repro_torch/csrc/tropical_apsp.cu",
         "replaces": "src/repro/kernels/tropical_apsp/kernel.py:28",
         "shape": [n, n, n],
+        "tile": tile,
         "launches": launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
+        "fenced_ms": kernel_fenced_ms,
         "plain_ms": plain_ms,
         "call_ms": kernel_call_ms,
         "plain_call_ms": plain_call_ms,
-        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-        "bound_by": ("bytes" if bound_bytes_ms > bound_ops_ms
-                     else "operations"),
+        "bound_ms": mp_bound[0],
+        "bound_by": mp_bound[1],
         "library_ms": None,
         "build_s": build_s,
         "design": DESIGN["minplus"],
+        "kernel_info": mp_info,
+        "apsp": {"entry": "apsp_f32",
+                 "replaces": "src/repro/kernels/tropical_apsp/ops.py:22",
+                 "shape": [n, n],
+                 "launches": mp_launches["apsp_f32"],
+                 "main_path_squarings": main_squarings,
+                 "library_ms": None, "grid": xl_grid,
+                 "scenarios_max_abs_err": apsp_err, **xl_apsp},
+        "fat_tree_32": {"entry": "apsp_f32", "squarings": ft_ran,
+                        "squarings_needed": ft_need,
+                        "launches": ft_made["apsp_f32"],
+                        "max_abs_err": ft_err, "library_ms": None,
+                        **{k: ft["apsp"][k] for k in (
+                            "ms", "bound_ms", "bound_by")},
+                        **ft},
     }, {
         "name": "flash_attention",
         "route": "cuda",

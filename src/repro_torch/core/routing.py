@@ -53,8 +53,9 @@ def hop_distances_np(hop: np.ndarray) -> np.ndarray:
 
 def hop_distances(hop: np.ndarray, device=None) -> np.ndarray:
     """All-pairs hop distances as float64 numpy: the numpy loop on the CPU,
-    the min-plus kernel (``apsp``) on CUDA.  Hop counts are small integers,
-    exact in float32, so both paths agree bit for bit."""
+    one launch of the min-plus kernel (``apsp``) on CUDA.  Hop counts are
+    small integers, exact in float32, so both paths agree bit for bit, and
+    both stop squaring once the distances settle."""
     dev = resolve(device)
     if dev.type == "cpu":
         return hop_distances_np(hop)

@@ -1,5 +1,7 @@
 """The port on a CUDA device: the min-plus kernel bitwise against its plain
-version, ``apsp`` against the numpy hop distances, a CUDA engine run
+version at every tile (one product, and the one-launch APSP at every
+number of squarings, with the squarings it ran), ``apsp`` against the
+numpy hop distances, a refused over-sized grid, a CUDA engine run
 against the CPU run, the flash-attention kernel against its plain version,
 a CUDA serving loop through the kernel against the same loop through the
 plain attention, and both selective-scan entry points against their plain
@@ -21,7 +23,8 @@ import dataclasses
 from repro_torch.api import Experiment, PolicyConfig
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import ROUTE_LEGACY, ROUTE_SDN
-from repro_torch.core.routing import hop_distances_np
+from repro_torch.core.routing import hop_distances, hop_distances_np
+from repro_torch.core.topology import fat_tree
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import naive_attention
@@ -30,8 +33,10 @@ from repro_torch.kernels.selective_scan import (fused_scan_ref,
                                                 selective_scan_fused,
                                                 selective_scan_ref)
 from repro_torch.kernels.selective_scan import kernel as scan_kernel
-from repro_torch.kernels.tropical_apsp import (apsp, kernel, minplus_matmul,
+from repro_torch.kernels.tropical_apsp import (apsp, apsp_ref, kernel,
+                                               minplus_matmul,
                                                minplus_matmul_ref)
+from repro_torch.kernels.tropical_apsp.ref import apsp_steps
 from repro_torch.models import get_model
 from repro_torch.scenarios import get_scenario
 from repro_torch.serve import Request, ServeLoop
@@ -67,6 +72,133 @@ def test_apsp_on_card_equals_numpy(cuda, name):
     got = apsp(torch.from_numpy(hop).to(cuda)).cpu().numpy()
     np.testing.assert_array_equal(got.astype(np.float64),
                                   hop_distances_np(hop))
+
+
+def _squarings(adj, max_steps):
+    """D_0 .. D_max of repeated squaring by the plain product, and the
+    first s whose squaring changed nothing (None if none did)."""
+    seq = [adj]
+    settled = None
+    for s in range(max_steps):
+        seq.append(minplus_matmul_ref(seq[-1], seq[-1]))
+        if settled is None and torch.equal(seq[-1].view(torch.int32),
+                                           seq[-2].view(torch.int32)):
+            settled = s
+    return seq, settled
+
+
+def _graphs(n, hops, cuda):
+    """A sparse random graph and a directed chain (diameter n - 1, so every
+    squaring up to the default changes something), with weights in
+    (0.1, 5), or with 1..5 hops when ``hops``."""
+    rng = np.random.RandomState(n)
+    out = []
+    for chain in (False, True):
+        if chain:
+            mask = np.zeros((n, n), bool)
+            mask[np.arange(n - 1), np.arange(1, n)] = True
+        else:
+            mask = rng.rand(n, n) < min(1.0, 3.0 / n)
+        adj = np.full((n, n), np.inf, np.float32)
+        adj[mask] = (rng.randint(1, 6, mask.sum()) if hops
+                     else rng.uniform(0.1, 5.0, mask.sum()))
+        np.fill_diagonal(adj, 0)
+        out.append(torch.from_numpy(adj).to(cuda))
+    return out
+
+
+@pytest.mark.parametrize("hops", [False, True])
+@pytest.mark.parametrize("n", [1, 2, 15, 16, 17, 31, 33, 127, 129, 153, 257,
+                               1345])
+def test_apsp_kernel_bitwise_equal_to_plain_at_every_steps(cuda, n, hops):
+    """apsp_f32 at every tile and every number of squarings up to one past
+    the default, on float weights and on integer hop counts: the plain
+    version's distances bit for bit, the squarings it ran (the first that
+    changed nothing, or all), one launch each."""
+    for adj in _graphs(n, hops, cuda):
+        max_steps = apsp_steps(n) + 1
+        seq, settled = _squarings(adj, max_steps)
+        for steps in range(1, max_steps + 1):
+            want_ran = steps if settled is None else min(steps, settled + 1)
+            for tile in kernel.TILES:
+                before = kernel.launch_count()
+                got = kernel.apsp_f32(adj, steps, tile=tile)
+                torch.cuda.synchronize()
+                assert kernel.launch_count() == before + 1
+                assert got.dtype == torch.float32 and got.shape == adj.shape
+                assert torch.equal(got, seq[steps]), (steps, tile)
+                assert int(kernel.last_squarings()) == want_ran, (steps,
+                                                                 tile)
+
+
+@pytest.mark.parametrize("name,want", [("leaf-spine-xl", 3),
+                                       ("fat_tree(16)", 4)])
+def test_apsp_squarings_on_fabrics(cuda, name, want):
+    """The one-launch APSP stops after the squaring that confirms the
+    diameter (4 on leaf-spine-xl, 6 on fat trees): 3 and 4 squarings,
+    with the distances of the full count, also when allowed more."""
+    topo = (fat_tree(16) if name == "fat_tree(16)"
+            else get_scenario(name).topology())
+    hop = torch.from_numpy(topo.hop_matrix()).to(cuda)
+    want_d = apsp_ref(hop, steps=want)
+    got = kernel.apsp_f32(hop)
+    assert int(kernel.last_squarings()) == want
+    assert torch.equal(got, want_d)
+    got = apsp(hop, steps=want + 3)
+    assert int(kernel.last_squarings()) == want
+    assert torch.equal(got, want_d)
+
+
+def test_route_table_distances_take_one_launch(cuda):
+    hop = get_scenario("leaf-spine-xl").topology().hop_matrix()
+    kernel.reset_launch_count()
+    got = hop_distances(hop, device=cuda)
+    assert kernel.launch_counts() == {"minplus_f32": 0, "apsp_f32": 1}
+    np.testing.assert_array_equal(got, hop_distances_np(hop))
+
+
+@pytest.mark.parametrize("tile", [16, 32, 64, 128])
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (16, 16, 16), (17, 33, 15),
+                                   (128, 128, 128), (129, 17, 257),
+                                   (100, 300, 7), (300, 5, 300)])
+def test_minplus_kernel_at_tile_edges(cuda, m, k, n, tile):
+    rng = np.random.RandomState(m * k + n)
+    x = rng.uniform(0, 10, (m, k)).astype(np.float32)
+    y = rng.uniform(0, 10, (k, n)).astype(np.float32)
+    x[rng.rand(m, k) < 0.1] = np.inf
+    y[rng.rand(k, n) < 0.1] = np.inf
+    xd, yd = torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda)
+    got = kernel.minplus_f32(xd, yd, tile=tile)
+    torch.cuda.synchronize()
+    assert torch.equal(got, minplus_matmul_ref(xd, yd))
+
+
+@pytest.mark.parametrize("tile", [16, 128])
+def test_apsp_kernel_refuses_an_oversized_grid(cuda, tile):
+    """A persistent grid larger than the card holds at once is refused by
+    the cooperative launch and raises; nothing is counted, and the card
+    stays usable."""
+    n = 4000
+    adj = torch.zeros(n, n, device=cuda)
+    cap = kernel.persistent_grid("apsp_f32", tile, n, cuda)
+    assert cap == (kernel.kernel_info("apsp_f32", tile)["blocks_per_sm"]
+                   * torch.cuda.get_device_properties(cuda)
+                   .multi_processor_count)
+    before = kernel.launch_count()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernel.apsp_f32(adj, steps=1, tile=tile, grid=cap + 1)
+    assert kernel.launch_count() == before
+    torch.cuda.synchronize()
+    assert torch.equal(kernel.apsp_f32(adj, steps=1, tile=tile, grid=cap),
+                       adj)
+
+
+def test_minplus_kernel_info_is_reported(cuda):
+    for entry in kernel.ENTRIES:
+        for tile in kernel.TILES:
+            info = kernel.kernel_info(entry, tile)
+            assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+            assert info["threads"] == (64 if tile == 16 else 256)
 
 
 def test_cuda_run_equals_cpu_run(cuda):
