@@ -80,7 +80,25 @@ Phases, each printed with its wall time:
    prefill through the kernel against the chunked scan, whose
    last-position logits must agree, and the same prompt walked layer by
    layer to show where their spread comes from (``mamba_depth_witness``);
-   and peak device memory.
+   and peak device memory;
+9. failures and the packed grid on CUDA: (a) ``paper-fabric-failures``
+   and ``leaf-spine-failures`` under {SDN, legacy} × {restart, resume},
+   each equal to its CPU run, with tasks re-executed and packets rerouted;
+   (b) the four-scenario heterogeneous grid (paper-fabric, leaf-spine,
+   fat-tree, canonical-tree × SDN, legacy) equal to the CPU grid, each
+   scenario's cells equal to its own single run on CUDA on the unpadded
+   prefix, the pad slots inert; (c) the slice's path at full size:
+   ``leaf-spine-xl`` at its registered size under the profile policy, SDN
+   and legacy lanes, crossed with three outage traces (none, and two seeds
+   of 5e-5 host and link failures a second with a 120 s repair), with
+   every kernel's launch count reset just before and read just after: one
+   ``apsp_f32`` launch for the whole grid, the trace without outages equal
+   to phase 5's healthy run, the seed-0 trace equal to its CPU run,
+   re-executions and reroutes on both failing traces, no lane stalled;
+   steps, steps/s and wall time of each trace's loop, the time from
+   ``Experiment()`` to the final state, the device's idle share (a
+   profiler trace of the seed-0 loop's first 200 steps run again), peak
+   device memory and the SDN-against-legacy rows.
 
 Then one JSON line with every kernel's numbers and design, the card's
 name and power limit, and last the line ``{"ok": true, "device":
@@ -91,6 +109,7 @@ result.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import gc
 import json
 import math
@@ -123,6 +142,19 @@ PEAK_SFU_PER_S = 132 * 16 * 1.98e9
 RTOL = 1e-6
 
 PROFILE_STEPS = {"paper-fabric": 21, "leaf-spine": 45, "leaf-spine-xl": 1202}
+
+# phase 9: the failure-rate axis of benchmarks/failure_sweep.py at one
+# rate, over leaf-spine-xl's expected makespan (~3540 s)
+XL_FAILURES = (("r0", dict(host_rate=0.0, link_rate=0.0)),
+               ("r5e-5/s0", dict(host_rate=5e-5, link_rate=5e-5, mttr=120.0,
+                                 horizon=3500.0, seed=0)),
+               ("r5e-5/s1", dict(host_rate=5e-5, link_rate=5e-5, mttr=120.0,
+                                 horizon=3500.0, seed=1)))
+GRID_SCENARIOS = ("paper-fabric", "leaf-spine", "fat-tree", "canonical-tree")
+# the idle share's profiler window: the first steps of the seed-0 trace's
+# loop (the trace's processing grows with its events: with the whole
+# 1886-step loop profiled, phase 9 took 445 s beside an H100 80GB HBM3)
+PROFILE_WINDOW_STEPS = 200
 
 # flash attention against its plain version: the reference's tolerances
 # (tests/test_kernels.py), float32 with TF32 off and bf16
@@ -561,7 +593,7 @@ def states_match(gpu, cpu, label: str) -> None:
     """Int/bool leaves equal, float leaves within RTOL (NaN == NaN)."""
     import torch
     for name, a, b in zip(gpu._fields, gpu, cpu):
-        a = a.cpu()
+        a, b = a.cpu(), b.cpu()
         check(a.shape == b.shape and a.dtype == b.dtype,
               f"{label}: SimState.{name} shape/dtype differ")
         if a.dtype.is_floating_point:
@@ -569,6 +601,42 @@ def states_match(gpu, cpu, label: str) -> None:
         else:
             ok = torch.equal(a, b)
         check(ok, f"{label}: SimState.{name} differs between CUDA and CPU")
+
+
+def cell_matches_single(packed, single, meta, topo, label: str) -> None:
+    """One cell of a packed grid against the same scenario's own single
+    run: every leaf equal on its unpadded prefix (node pairs mapped back
+    to the scenario's numbering), and the pad slots inert: pad tasks and
+    packets VOID with no VM, route or time, pad hosts and switches at 0 J.
+    """
+    import torch
+    from repro_torch.core.mapreduce import VOID
+    hosts, switches, nodes = meta.n_hosts, meta.n_switches, meta.n_nodes
+
+    def own_ids(ids):
+        return torch.where(ids < hosts, ids, torch.where(
+            ids < hosts + switches, ids - hosts + topo.n_hosts,
+            ids - hosts - switches + topo.n_hosts + topo.n_switches))
+
+    for name, a, b in zip(single._fields, packed, single):
+        a = a.cpu()
+        if name == "pkt_pair":
+            a = torch.where(a >= 0, own_ids(a // nodes) * topo.n_nodes
+                            + own_ids(a % nodes), -1).to(a.dtype)
+        prefix = a[tuple(slice(0, n) for n in b.shape)]
+        check(torch.equal(prefix.nan_to_num(-7.0), b.cpu().nan_to_num(-7.0)),
+              f"{label}: SimState.{name} differs from the single run")
+    n_t, n_p = single.task_state.shape[0], single.pkt_state.shape[0]
+    for name, n, void in (("task_state", n_t, VOID), ("pkt_state", n_p, VOID),
+                          ("task_vm", n_t, -1), ("pkt_pair", n_p, -1)):
+        check(bool((getattr(packed, name)[n:] == void).all()),
+              f"{label}: a pad slot of {name} moved")
+    check(bool(packed.task_start[n_t:].isnan().all())
+          and bool(packed.pkt_finish[n_p:].isnan().all()),
+          f"{label}: a pad slot has a time")
+    check(not bool(packed.host_energy[topo.n_hosts:].any())
+          and not bool(packed.switch_energy[topo.n_switches:].any()),
+          f"{label}: a pad host or switch drew energy")
 
 
 def main() -> int:
@@ -579,7 +647,8 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import numpy as np
 
-    from repro_torch.api import Experiment, PolicyConfig
+    from repro_torch.api import (Experiment, PolicyConfig,
+                                 consts_cache_clear, runners)
     from repro_torch.core import ROUTE_LEGACY, ROUTE_SDN, TRAFFIC_WATERFILL
     from repro_torch.core.routing import hop_distances_np
     from repro_torch.core.topology import fat_tree
@@ -599,6 +668,8 @@ def main() -> int:
     from repro_torch.launch import serve as serve_launch
     from repro_torch.models import layers as lm_layers
     from repro_torch.scenarios import get_scenario
+    from repro_torch.scenarios.failures import failure_injector
+    from repro_torch.scenarios.sweep import slice_packed
 
     kernels = (minplus_kernel, fa_kernel, scan_kernel)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -870,8 +941,8 @@ def main() -> int:
                 xl_fa_launches = fa_kernel.launch_count()
                 xl_scan_launches = scan_kernel.launch_count()
                 peak = torch.cuda.max_memory_allocated()
-            steps = int(res.states.steps[0])
-            check(not bool(res.states.stalled[0]), f"{name} stalled")
+            steps = int(res.states.steps[0, 0])
+            check(not bool(res.states.stalled[0, 0]), f"{name} stalled")
             check(steps == PROFILE_STEPS[name],
                   f"{name}: {steps} steps, expected {PROFILE_STEPS[name]}")
             rates[name] = steps / wall
@@ -886,6 +957,8 @@ def main() -> int:
             cpu = Experiment(name, profile, device="cpu").run()
             states_match(res.states, cpu.states, name)
             print(f"{name}: final state equals the CPU run")
+            if main_path:
+                healthy_xl = res.state(0, 0)
         check(mp_launches == {"minplus_f32": 0, "apsp_f32": 1}
               and main_squarings == 3,
               f"leaf-spine-xl's route table took min-plus launches "
@@ -1211,6 +1284,159 @@ def main() -> int:
               f"{serve_ssm['phase_peak_gib']:.3f} GiB")
         del loop, served
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    failures_report = {}
+    with phase("9 failures and the packed grid on CUDA"):
+        t_phase9 = time.perf_counter()
+        # (a) the two failure scenarios, CUDA against the CPU
+        fpols = [(f"{r}/{rec}", PolicyConfig(routing=rv, recovery=recv,
+                                             job_concurrency=2))
+                 for r, rv in (("sdn", ROUTE_SDN), ("legacy", ROUTE_LEGACY))
+                 for rec, recv in (("restart", 0), ("resume", 1))]
+        reverts = {"task_reexecs": 0, "pkt_reroutes": 0}
+        for name in ("paper-fabric-failures", "leaf-spine-failures"):
+            res = Experiment(name, fpols, device="cuda").run()
+            cpu = Experiment(name, fpols, device="cpu").run()
+            check(res.meta.has_failures, f"{name}: no live failure schedule")
+            states_match(res.states, cpu.states, name)
+            rows = res.rows()
+            for k in reverts:
+                reverts[k] += sum(r[k] for r in rows)
+            print(f"{name}: equal to the CPU run; steps "
+                  f"{res.states.steps[0].tolist()}, re-executions "
+                  f"{[r['task_reexecs'] for r in rows]}, reroutes "
+                  f"{[r['pkt_reroutes'] for r in rows]} ({res.policy_names})")
+        check(reverts["task_reexecs"] > 0 and reverts["pkt_reroutes"] > 0,
+              f"the failure scenarios reverted nothing: {reverts}")
+
+        # (b) the heterogeneous grid: CUDA against the CPU grid, each
+        # scenario against its own single run, the pad slots inert
+        gpols = [("sdn", PolicyConfig(routing=ROUTE_SDN)),
+                 ("legacy", PolicyConfig(routing=ROUTE_LEGACY))]
+        grid = Experiment(list(GRID_SCENARIOS), gpols, device="cuda").run()
+        cgrid = Experiment(list(GRID_SCENARIOS), gpols, device="cpu").run()
+        check(grid.states.time.device.type == "cuda"
+              and grid.consts.routes.device.type == "cuda",
+              "the grid did not run on CUDA")
+        states_match(grid.states, cgrid.states, "grid")
+        for si, name in enumerate(GRID_SCENARIOS):
+            exp = Experiment(name, gpols, device="cuda")
+            single = exp.run()
+            topo = exp.scenarios[0][1].cluster.topo
+            for pi in range(len(gpols)):
+                cell_matches_single(grid.state(si, pi), single.state(0, pi),
+                                    grid.meta, topo, f"grid {name}/{pi}")
+        print(f"grid {list(GRID_SCENARIOS)} x {grid.policy_names}: equal to "
+              f"the CPU grid and, cell by cell, to each scenario's own run "
+              f"on its unpadded prefix; pad slots inert; steps "
+              f"{grid.states.steps.tolist()}")
+
+        # (c) the slice's path at full size: leaf-spine-xl x 3 outage traces
+        xl_pols = [("sdn", PolicyConfig(job_concurrency=4)),
+                   ("legacy", PolicyConfig(routing=ROUTE_LEGACY,
+                                           job_concurrency=4))]
+        traces = [(n, failure_injector(**kw)) for n, kw in XL_FAILURES]
+        consts_cache_clear()      # phase 5 built xl: build its table anew
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in kernels:
+            kern.reset_launch_count()
+        t_main = time.perf_counter()
+        exp = Experiment("leaf-spine-xl", xl_pols, failures=traces,
+                         device="cuda")
+        res = exp.run()
+        torch.cuda.synchronize()
+        xl_main_s = time.perf_counter() - t_main
+        xl_launches = minplus_kernel.launch_counts()
+        xl_squarings = int(minplus_kernel.last_squarings())
+        xl_other = fa_kernel.launch_count() + scan_kernel.launch_count()
+        xl_peak = torch.cuda.max_memory_allocated()
+        loop_s = list(runners.get_runner(res.meta, "grid").seconds)
+        check(xl_launches == {"minplus_f32": 0, "apsp_f32": 1}
+              and xl_squarings == 3,
+              f"the xl grid took min-plus launches {xl_launches} of "
+              f"{xl_squarings} squarings, expected one apsp_f32 of 3")
+        check(xl_other == 0, "the xl grid launched flash or the scan")
+        check(res.states.time.device.type == "cuda",
+              "the xl grid did not run on CUDA")
+        r0 = res.state(0, 0)
+        states_match(r0, healthy_xl, "xl r0 against the healthy run")
+        r0_bitwise = all(torch.equal(a.nan_to_num(-7.0), b.nan_to_num(-7.0))
+                         for a, b in zip(r0, healthy_xl))
+        check(int(r0.steps) == PROFILE_STEPS["leaf-spine-xl"],
+              f"xl r0: {int(r0.steps)} steps")
+        print(f"xl r0 SDN lane equals phase 5's healthy run "
+              f"({int(r0.steps)} steps): bitwise {r0_bitwise}")
+        cpu_s0 = Experiment("leaf-spine-xl", xl_pols, device="cpu",
+                            failures=[traces[1]]).run()
+        states_match(type(res.states)(*(a[1:2] for a in res.states)),
+                     cpu_s0.states,
+                     "xl r5e-5/s0 against its CPU run")
+        rows = res.rows()
+        for row in rows:
+            stalled_ok = not row["stalled"] or (
+                row["scenario"].endswith("s0") and bool(
+                    cpu_s0.states.stalled[0, res.policy_names.index(
+                        row["policy"])]))
+            check(stalled_ok, f"xl {row['scenario']}/{row['policy']} "
+                              f"stalled")
+        for si in (1, 2):
+            got = [r for r in rows if r["scenario"] == res.scenario_names[si]]
+            check(sum(r["task_reexecs"] for r in got) > 0
+                  and sum(r["pkt_reroutes"] for r in got) > 0,
+                  f"xl {res.scenario_names[si]}: nothing reverted")
+        # the device's busy time over the first PROFILE_WINDOW_STEPS steps
+        # of the seed-0 loop, under the profiler, against the same window
+        # run unprofiled just before
+        consts, meta = exp.build()
+        loop = runners.get_runner(dataclasses.replace(
+            meta, max_steps=PROFILE_WINDOW_STEPS), "policy_batch")
+        window = lambda: loop(slice_packed(consts, 1),  # noqa: E731
+                              exp.policy_arrays())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        window_steps = int(window().steps.max())
+        window_s = time.perf_counter() - t0
+        busy = device_ms(window)
+        idle_s0 = None if busy is None else 1 - busy / 1e3 / window_s
+        replicas = {}
+        for si, name in enumerate(res.scenario_names):
+            steps = int(res.states.steps[si].max())
+            replicas[name.split("/", 1)[1]] = {
+                "loop_steps": steps, "loop_s": loop_s[si],
+                "steps_per_s": steps / loop_s[si],
+                "lane_steps": res.states.steps[si].tolist(),
+                "rows": {r["policy"]: {k: r[k] for k in (
+                    "makespan_s", "downtime_s", "task_reexecs",
+                    "pkt_reroutes", "stalled")}
+                    for r in rows if r["scenario"] == name}}
+        for name, rep9 in replicas.items():
+            print(f"xl {name}: {rep9['loop_steps']} loop steps (lanes "
+                  f"{rep9['lane_steps']}) in {rep9['loop_s']:.3f} s = "
+                  f"{rep9['steps_per_s']:.1f} steps/s on CUDA")
+            for pol, row in rep9["rows"].items():
+                print(f"  {pol}: makespan {row['makespan_s']} s, downtime "
+                      f"{row['downtime_s']} s, re-executions "
+                      f"{row['task_reexecs']}, reroutes "
+                      f"{row['pkt_reroutes']}")
+        print(f"xl grid: {xl_main_s:.3f} s from Experiment() to the final "
+              f"state, min-plus launches {xl_launches} ({xl_squarings} "
+              f"squarings), peak device memory {xl_peak / 2**20:.1f} MiB; "
+              f"seed-0 loop's first {window_steps} steps: device busy "
+              f"{busy} ms of {window_s * 1e3:.3f} ms, idle share "
+              f"{idle_s0}; the seed-0 trace equals its CPU run")
+        failures_report = {
+            "small": reverts, "grid_steps": grid.states.steps.tolist(),
+            "xl": {"main_s": xl_main_s, "apsp_launches": xl_launches,
+                   "squarings": xl_squarings, "peak_mib": xl_peak / 2**20,
+                   "r0_bitwise_healthy": r0_bitwise,
+                   "idle_share_s0": idle_s0, "busy_ms_s0": busy,
+                   "profile_window": {"steps": window_steps,
+                                      "wall_s": window_s},
+                   "replicas": replicas},
+            "phase_s": time.perf_counter() - t_phase9}
+
     t_fa = fa_times[LONG_PROMPT]
     print(json.dumps({"kernels": [{
         "name": "minplus_f32",
@@ -1306,6 +1532,7 @@ def main() -> int:
         "design": DESIGN["scan"],
         "occupancy": scan_occ,
     }], "steps_per_s": rates, "device_idle_share": idle,
+        "failures": failures_report,
         "serve": serve, "serve_ssm": serve_ssm}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
-"""``Results`` — the result surface of an ``Experiment`` run (DESIGN.md §6).
+"""``Results`` — one result surface for every experiment shape
+(DESIGN.md §6).
 
-Port of ``src/repro/api/results.py`` for one scenario: the final states
-are the ``[P, ...]`` lanes of one run, and every report keeps the
-reference's ``[S, P, ...]`` layout with ``S = 1``.  Pad jobs are masked to
-NaN via ``consts.job_valid`` before aggregating.
+Port of ``src/repro/api/results.py``: states are held as a ``[S, P, ...]``
+grid (S scenarios × P policies, both possibly 1) and every accessor masks
+pad jobs via ``consts.job_valid`` before aggregating, so a padded
+heterogeneous batch and a single run read identically.
 """
 from __future__ import annotations
 
@@ -13,8 +14,9 @@ from typing import Any, Dict, List
 import numpy as np
 
 from ..core.engine import EngineConsts, SimState
-from ..core.report import energy_report, job_report_arrays
+from ..core.report import energy_report, job_report_consts
 from ..core.simmeta import SimMeta
+from ..scenarios.sweep import slice_packed
 
 
 def _finite_mean(a: np.ndarray) -> float:
@@ -27,39 +29,55 @@ def _finite_mean(a: np.ndarray) -> float:
 class Results:
     """Final states of an ``Experiment`` run.
 
-    ``states`` leaves are ``[P, ...]`` (one lane per policy, on the run's
-    device); ``consts`` are the scenario's, shared by every lane.
+    ``states`` leaves are ``[S, P, ...]`` (on the run's device);
+    ``consts`` leaves keep the scenario axis only (``[S, ...]``) — policy
+    replicas share them.
     """
 
-    states: SimState
-    consts: EngineConsts
+    states: SimState           # leaves [S, P, ...]
+    consts: EngineConsts       # leaves [S, ...]
     meta: SimMeta
-    scenario_names: List[str]  # [1]
+    scenario_names: List[str]  # [S]
     policy_names: List[str]    # [P]
     _jr: dict = dataclasses.field(default=None, repr=False, compare=False)
     _er: dict = dataclasses.field(default=None, repr=False, compare=False)
 
+    @property
+    def n_scenarios(self) -> int:
+        return len(self.scenario_names)
+
+    @property
+    def n_policies(self) -> int:
+        return len(self.policy_names)
+
+    def __len__(self) -> int:
+        return self.n_scenarios * self.n_policies
+
     def state(self, scenario: int = 0, policy: int = 0) -> SimState:
         """The unbatched final SimState of one (scenario, policy) cell."""
-        if scenario != 0:
-            raise IndexError("a repro_torch Results holds one scenario")
-        return SimState(*(leaf[policy] for leaf in self.states))
+        return SimState(*(leaf[scenario, policy] for leaf in self.states))
 
     def job_report(self) -> Dict[str, np.ndarray]:
-        """Per-job metrics (paper Eqs. 6–9), every array ``[1, P, N_J]``."""
+        """Per-job metrics (paper Eqs. 6–9), every array ``[S, P, N_J]``.
+
+        Pad jobs of a packed heterogeneous batch are NaN — aggregate with
+        nan-aware reductions and the numbers match the unpadded runs."""
         if self._jr is None:
             c = self.consts
-            rep = job_report_arrays(c.pkt_job, c.pkt_phase, c.task_job,
-                                    c.task_kind, c.job_release, self.states)
-            valid = c.job_valid.cpu().numpy()[None, None, :]
-            self._jr = {k: np.where(valid, v.cpu().numpy()[None], np.nan)
-                        for k, v in rep.items()}
+            per = [job_report_consts(
+                slice_packed(c, si),
+                SimState(*(leaf[si] for leaf in self.states)))
+                for si in range(self.n_scenarios)]
+            valid = c.job_valid.cpu().numpy()[:, None, :]   # [S, 1, N_J]
+            self._jr = {k: np.where(valid, np.stack(
+                [rep[k].cpu().numpy() for rep in per]), np.nan)
+                for k in per[0]}
         return self._jr
 
     def energy_report(self) -> Dict[str, np.ndarray]:
-        """Energy + makespan, every array ``[1, P]``."""
+        """Energy + makespan, every array ``[S, P]``."""
         if self._er is None:
-            self._er = {k: v.cpu().numpy()[None]
+            self._er = {k: v.cpu().numpy()
                         for k, v in energy_report(self.states).items()}
         return self._er
 
@@ -74,15 +92,20 @@ class Results:
                 "steps": s.steps.cpu().numpy()}
 
     def rows(self) -> List[Dict[str, Any]]:
-        """Per-cell scalar summary, the reference's row keys and values."""
+        """Per-cell scalar summary, scenario-major, the reference's row
+        keys and values: valid-job completion/transmission means, energy,
+        makespan, stall flag, the recovery totals (re-executed tasks,
+        rerouted packets, summed downtime; zero without a failure
+        schedule) and the control-plane and chaos totals (zero: those
+        features are not ported yet)."""
         jr = self.job_report()
         er = self.energy_report()
-        st = {k: getattr(self.states, k).cpu().numpy()[None] for k in (
+        st = {k: getattr(self.states, k).cpu().numpy() for k in (
             "stalled", "steps", "ctrl_installs", "ctrl_evictions",
             "ctrl_reinstalls", "ctrl_queue_wait", "spec_launches",
             "spec_wins", "spec_wasted", "degraded_time", "ctrl_failovers",
             "ctrl_failover_park")}
-        migrations = self.states.vm_migrations.cpu().numpy()[None].sum(-1)
+        migrations = self.states.vm_migrations.cpu().numpy().sum(-1)
         out = []
         for si, sn in enumerate(self.scenario_names):
             for pi, pn in enumerate(self.policy_names):

@@ -1,14 +1,15 @@
 """The discrete-event engine: one Python loop of whole-tensor steps.
 
-Port of ``src/repro/core/engine.py`` (its main path).  Between events every
-rate (channel bandwidth, VM MIPS share, power draw) is piecewise constant,
-so the next event time is an analytic ``min`` over fixed-shape state
-tensors (paper Eq. 4 generalized to packet finishes, task finishes and job
-releases).  One loop iteration = one event:
+Port of ``src/repro/core/engine.py``.  Between events every rate (channel
+bandwidth, VM MIPS share, power draw) is piecewise constant, so the next
+event time is an analytic ``min`` over fixed-shape state tensors (paper
+Eq. 4 generalized to packet finishes, task finishes, job releases and
+fail/recover instants).  One loop iteration = one event:
 
-  admission -> placement -> task activation -> packet activation (routed)
-  -> rates -> dt = earliest horizon -> energy += power*dt -> advance
-  -> completions
+  failure/recovery transitions (only when a schedule has a finite
+  instant) -> admission -> placement -> task activation -> packet
+  activation (routed) -> rates -> dt = earliest horizon ->
+  energy += power*dt -> advance -> completions
 
 Lanes.  Every ``SimState`` leaf carries a leading lane axis ``[W, ...]``:
 W policies on one scenario run as W lanes of one loop, the counterpart of
@@ -32,20 +33,23 @@ Exactness.  The state, step for step, equals the reference's:
 Float leaves then match the reference bit for bit on the CPU; on CUDA the
 water-fill's float scatter-adds are atomics (see ``fairshare``).
 
-Scope.  Only the main path is ported: ``SimMeta.has_failures``,
-``has_degradation`` and ``has_ctrl`` all False and ``spec_slots == 0``;
-``make_consts`` refuses any other setup.  Left out of this module, with
+Failures (DESIGN.md §7).  With ``SimMeta.has_failures`` the step runs
+``_apply_failures`` and the failure terms of admission, activation, rates,
+the horizon, energy and downtime, each as the reference does; with it
+False none of them is issued.  The one-shot revert transitions run only on
+steps where some lane's dead masks grew; that flag travels to the host in
+the same copy as the loop's finished flags, so failures add no host sync.
+
+Scope.  ``make_consts`` refuses a live control-plane config, a live
+degradation schedule and speculation slots.  Left out of this module, with
 the ROADMAP item that brings each:
 
-* ``_apply_failures`` and the failure terms of ``_step`` — queue 1 item 5;
 * ``_ctrl_request``, ``_ctrl_tbl``, ``_with_ctrl_tbl``, ``_activate_ctrl``,
   ``_preinstall``, ``_maybe_migrate`` — queue 1 item 6;
 * ``_effective_link_bw`` / ``_effective_host_mips`` / ``_host_deg_factor``
   under degradation, ``_speculate`` — queue 1 item 7;
 * ``tree_select``, ``init_fleet_carry``, ``make_fleet_chunk`` — queue 1
-  item 8;
-* ``simulate``, ``simulate_batch``, ``simulate_scenarios`` (deprecated
-  shims in the reference) — use ``repro_torch.api.Experiment``.
+  item 8.
 """
 from __future__ import annotations
 
@@ -63,7 +67,7 @@ from .failures import no_degradation, no_failures
 from .fp import fma32
 from .mapreduce import ACTIVE, DONE, SimSetup, VOID, WAITING
 from .policies import (JOBSEL_PRIORITY, JOBSEL_SJF, PLACE_RANDOM,
-                       PLACE_ROUND_ROBIN)
+                       PLACE_ROUND_ROBIN, RECOVERY_RESTART, as_policy_arrays)
 from .routing import (ROUTE_SDN, flow_hash_u32, legacy_route_choice,
                       sdn_route_choice)
 from .simmeta import SimMeta
@@ -240,8 +244,18 @@ class SimState(NamedTuple):
 
 
 def default_max_steps(setup: SimSetup) -> int:
-    """Step cap: the no-failure event bound (the only case the port runs)."""
-    return 4 * (setup.n_packets + setup.n_tasks) + 4 * setup.n_jobs + 64
+    """Step cap: the no-failure event bound, plus — when a failure schedule
+    is present — one full re-execution budget per fail/recover instant,
+    quantized to the next power of two as in the reference.  (The
+    reference's degradation, speculation and control-plane terms come
+    with ROADMAP queue 1 items 6 and 7; ``make_consts`` refuses those
+    setups.)"""
+    base = 4 * (setup.n_packets + setup.n_tasks) + 4 * setup.n_jobs + 64
+    sched = setup.failures
+    if sched is not None and sched.any_failures:
+        steps = base * (1 + sched.n_events) + 2 * sched.n_events
+        return 1 << (steps - 1).bit_length()
+    return base
 
 
 UNREACHABLE_HOPS = 1 << 20  # pair_hops sentinel: no candidate route
@@ -258,12 +272,28 @@ def pair_hops_np(route_len, n_cand, n_nodes: int) -> np.ndarray:
     return hops
 
 
+def refuse_unported(setup: SimSetup) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item for a setup
+    with a live control-plane config, a live degradation schedule or
+    speculation slots (features the port does not run yet)."""
+    for live, what, item in (
+            (setup.ctrl is not None and setup.ctrl.any_ctrl,
+             "a control-plane config", "queue 1 item 6"),
+            (setup.degradation is not None
+             and setup.degradation.any_degradation,
+             "a degradation schedule", "queue 1 item 7"),
+            (setup.spec_slots > 0, "speculation slots", "queue 1 item 7")):
+        if live:
+            raise NotImplementedError(
+                f"repro_torch does not run {what} yet (ROADMAP {item})")
+
+
 def make_consts(setup: SimSetup, device=None) -> tuple[EngineConsts, SimMeta]:
     """Bake a setup into device tensors (``device=None`` = CUDA).
 
-    Refuses a setup the ported path cannot run: a failure schedule with a
-    finite instant, a live degradation window, a live control-plane config
-    or speculation slots.  That is a refusal, not a fallback."""
+    Refuses a setup the port cannot run yet: a live degradation window, a
+    live control-plane config or speculation slots.  That is a refusal,
+    not a fallback."""
     dev = resolve(device)
     rt, cl = setup.route_table, setup.cluster
     sched = setup.failures or no_failures(cl.topo.n_hosts, cl.topo.n_links)
@@ -272,15 +302,7 @@ def make_consts(setup: SimSetup, device=None) -> tuple[EngineConsts, SimMeta]:
     cfg = (setup.ctrl or no_ctrl()).validate()
     sched.validate(cl.topo.n_hosts, cl.topo.n_links)
     deg.validate(cl.topo.n_hosts, cl.topo.n_links)
-    for live, what, item in (
-            (sched.any_failures, "a failure schedule", "queue 1 item 5"),
-            (cfg.any_ctrl, "a control-plane config", "queue 1 item 6"),
-            (deg.any_degradation, "a degradation schedule",
-             "queue 1 item 7"),
-            (setup.spec_slots > 0, "speculation slots", "queue 1 item 7")):
-        if live:
-            raise NotImplementedError(
-                f"repro_torch does not run {what} yet (ROADMAP {item})")
+    refuse_unported(setup)
 
     def t(a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
@@ -339,7 +361,8 @@ def make_consts(setup: SimSetup, device=None) -> tuple[EngineConsts, SimMeta]:
         n_nodes=cl.topo.n_nodes, n_links=cl.topo.n_links,
         n_hosts=cl.topo.n_hosts, n_switches=cl.topo.n_switches,
         n_vms=int(cl.vm_host.shape[0]), intra_bw=cl.intra_bw,
-        energy=cl.energy, max_steps=default_max_steps(setup))
+        energy=cl.energy, max_steps=default_max_steps(setup),
+        has_failures=sched.any_failures)
     return consts, meta
 
 
@@ -419,6 +442,14 @@ def init_state_from_consts(c: EngineConsts, n_switches: int,
     )
 
 
+def init_state(setup: SimSetup, device=None) -> SimState:
+    """The unbatched t=0 state of ``setup`` on ``device`` (``None`` =
+    CUDA)."""
+    consts, meta = make_consts(setup, device)
+    return SimState(*(leaf[0] for leaf in init_state_from_consts(
+        consts, meta.n_switches)))
+
+
 # ---------------------------------------------------------------------------
 # step phases (every state tensor [W, ...]; consts shared)
 # ---------------------------------------------------------------------------
@@ -439,12 +470,17 @@ def _place_batch(pol, ph, aux, s: SimState, mine, pos, vm_live,
     integer scatter-add.  Least-used must see each earlier placement's
     load bump, so it scans the tasks to place in position order (every
     placement id that is neither round-robin nor random takes the scan, as
-    in the reference)."""
+    in the reference).
+
+    ``vm_live``/``n_live`` are ``[V]``/``[]`` for every lane, or ``[W, V]``/
+    ``[W]`` per lane when failures kill hosts."""
     w, n_t = mine.shape
     dev = mine.device
     counter0 = s.place_counter
     n_mine = mine.sum(1, dtype=I32)
     mod = n_live.clamp(min=1)
+    if mod.dim():
+        mod = mod[:, None]
     vec_lane = (pol["placement"] == PLACE_ROUND_ROBIN) | (
         pol["placement"] == PLACE_RANDOM)
     vec_host = (ph["placement"] == PLACE_ROUND_ROBIN) | (
@@ -455,8 +491,13 @@ def _place_batch(pol, ph, aux, s: SimState, mine, pos, vm_live,
         # kth[k] = slot index of the k-th live VM (stable: live slots first
         # in ascending order, so a ``% mod`` pick never lands on a dead one)
         kth = torch.argsort((~vm_live).to(I32), stable=True)
-        rr_pick = kth[(counter0[:, None].long() + pos) % mod]
-        rnd_pick = kth[aux["task_hash"].long() % mod]
+        rr_at = (counter0[:, None].long() + pos) % mod
+        rnd_at = aux["task_hash"].long() % mod
+        if kth.dim() == 1:
+            rr_pick, rnd_pick = kth[rr_at], kth[rnd_at]
+        else:
+            rr_pick = torch.gather(kth, 1, rr_at)
+            rnd_pick = torch.gather(kth, 1, rnd_at.expand_as(rr_at))
         pick = torch.where(pol["placement"][:, None] == PLACE_ROUND_ROBIN,
                            rr_pick, rnd_pick)
         vec = mine & vec_lane[:, None]
@@ -490,18 +531,32 @@ def _admit_and_place(c: EngineConsts, meta, pol, ph, aux, s: SimState):
     free, then place each admitted job's tasks onto VMs.
 
     Admission is one stable sort of the released jobs by the policy key
-    (ties by job index); the concurrency budget is a rank cutoff.  Returns
-    ``(s, placed)``: ``placed [W]`` marks lanes whose placement changed."""
+    (ties by job index); the concurrency budget is a rank cutoff.
+
+    With failures, placement only considers VMs on live hosts (the
+    ResourceManager's heartbeat view), nothing is admitted while no host
+    is live, and a second batch re-places the tasks a host failure
+    unplaced (YARN re-execution).  Returns ``(s, placed, any_placed)``:
+    ``placed [W]`` marks lanes whose placement changed, ``any_placed`` is
+    its host-side any."""
     w, n_j = s.job_admitted.shape
     dev = s.time.device
     vm_live = torch.arange(meta.n_vms, device=dev) < c.n_vms
-    n_live = vm_live.sum(dtype=I32)
+    if meta.has_failures:
+        host_of_vm = c.vm_host.clamp(0, c.host_fail_t.shape[0] - 1).long()
+        vm_live = vm_live & ~s.host_dead[:, host_of_vm]          # [W, V]
+        n_live = vm_live.sum(1, dtype=I32)
+    else:
+        n_live = vm_live.sum(dtype=I32)
 
     released = (~s.job_admitted) & c.job_valid & (
         c.job_release <= s.time[:, None])
     running = (s.job_admitted & (s.job_out_done < c.job_n_out)
                & c.job_valid).sum(1, dtype=I32)
     slots = (pol["job_concurrency"] - running).clamp(min=0)
+    if meta.has_failures:
+        # no live NodeManager, no admission: jobs wait for a recovery
+        slots = torch.where(n_live > 0, slots, 0)
     sel = pol["job_selection"][:, None]
     key = torch.where(sel == JOBSEL_SJF, c.job_total_mi,
                       torch.where(sel == JOBSEL_PRIORITY, -c.job_priority,
@@ -512,8 +567,21 @@ def _admit_and_place(c: EngineConsts, meta, pol, ph, aux, s: SimState):
         1, ord_j, torch.arange(n_j, device=dev).expand(w, n_j))
     admit_now = released & (rank < slots[:, None])
     placed = admit_now.any(1)
+    if meta.has_failures:
+        job_of_task = c.task_job.clamp(min=0).long()
+        # tasks a host failure unplaced, of jobs admitted before this step
+        # (this step's admissions place every task they admit, so the set
+        # is the same before and after them); with no live VM they wait
+        orphaned = (c.task_valid & (s.task_vm < 0)
+                    & (s.task_state == WAITING)
+                    & s.job_admitted[:, job_of_task] & (n_live > 0)[:, None])
+        any_admit, any_orphan = torch.stack(
+            [placed.any(), orphaned.any()]).tolist()
+        placed = placed | orphaned.any(1)
+    else:
+        any_admit, any_orphan = bool(placed.any()), False
 
-    if bool(placed.any()):
+    if any_admit:
         job_of_task = c.task_job.clamp(min=0).long()
         mine = c.task_valid & admit_now[:, job_of_task]
         # placement position: admission-rank-major, task-index-minor
@@ -526,7 +594,11 @@ def _admit_and_place(c: EngineConsts, meta, pol, ph, aux, s: SimState):
     s = s._replace(job_admitted=s.job_admitted | admit_now,
                    job_admit_t=torch.where(admit_now, s.time[:, None],
                                            s.job_admit_t))
-    return s, placed
+    if any_orphan:
+        # placement order: ascending task index after this step's admissions
+        s = _place_batch(pol, ph, aux, s, orphaned,
+                         orphaned.to(I32).cumsum(1) - 1, vm_live, n_live)
+    return s, placed, any_admit or any_orphan
 
 
 NODE_OFFSET = 1 << 20  # pkt_src/dst_task >= NODE_OFFSET encodes a direct
@@ -590,14 +662,96 @@ def _sdn_scan(c: EngineConsts, ready, pair_all, link_bw, nc, cand):
     return nc, cand
 
 
-def _activate(c: EngineConsts, pol, ph, aux, cache, nc, s: SimState):
+def _apply_failures(c: EngineConsts, pol, s: SimState, nc, dead, died):
+    """Fire every fail/recover transition whose instant has been reached.
+
+    ``dead`` holds the host and link dead masks ``[W, n]`` at ``s.time``
+    (fail instants join the dt horizon, so the clock lands on each one);
+    the delta against the previous masks drives the one-shot transitions,
+    run only when ``died`` (host-side: some lane's masks grew this step):
+
+      * WAITING/ACTIVE tasks on a newly-dead host revert to WAITING and
+        unplace; under ``recovery=restart`` their progress is lost, under
+        ``resume`` ``task_rem`` survives;
+      * in-flight packets whose route crosses a newly-dead link revert to
+        WAITING for re-routing (delivered bits survive);
+      * in-flight packets whose src/dst host newly died revert too and,
+        under ``restart``, retransmit from scratch.
+
+    DONE work is never reverted; recovery instants need no transition.
+    Returns ``(s, nc)`` with the reverted packets' channels released."""
+    host_dead, link_dead = dead
+    new_h = host_dead & ~s.host_dead
+    new_l = link_dead & ~s.link_dead
+    s = s._replace(host_dead=host_dead, link_dead=link_dead)
+    if not died:
+        return s, nc
+    w = nc.shape[0]
+    restart = (pol["recovery"] == RECOVERY_RESTART)[:, None]
+    n_hosts_pad = c.host_fail_t.shape[0]
+    # packets first: endpoints resolve against the activation-time
+    # placement, before any task unplaces below
+    src_node, dst_node = _pkt_endpoints(c, s)
+    routed = s.pkt_state == ACTIVE
+    links = _route_links(c, s, routed)                          # [W, P, H]
+    on_route = torch.gather(new_l, 1, links.clamp(min=0).reshape(w, -1)
+                            .long()).reshape(links.shape)
+    route_hit = routed & ((links >= 0) & on_route).any(-1)
+
+    def endpoint_died(node):
+        return (node < c.n_hosts) & torch.gather(
+            new_h, 1, node.clamp(0, n_hosts_pad - 1).long())
+
+    ep_hit = routed & (endpoint_died(src_node) | endpoint_died(dst_node))
+    hit_p = route_hit | ep_hit
+    # the reverted packets release their channels: an integer
+    # scatter-add, exact in any order
+    m = hit_p[..., None] & (links >= 0)
+    nc = nc.scatter_add(1, torch.where(m, links, 0).reshape(w, -1).long(),
+                        -m.reshape(w, -1).to(I32))
+
+    # tasks on newly-dead hosts
+    vm_safe = s.task_vm.clamp(min=0).long()
+    task_host = c.vm_host[vm_safe].clamp(0, n_hosts_pad - 1).long()
+    hit_t = (c.task_valid & (s.task_vm >= 0)
+             & torch.gather(new_h, 1, task_host)
+             & ((s.task_state == ACTIVE) | (s.task_state == WAITING)))
+    vm_load = s.vm_load - torch.zeros_like(s.vm_load).scatter_add(
+        1, vm_safe, hit_t.to(I32))
+    s = s._replace(
+        pkt_state=torch.where(hit_p, WAITING, s.pkt_state),
+        pkt_rem=torch.where(ep_hit & restart, c.pkt_bits, s.pkt_rem),
+        pkt_pair=torch.where(hit_p, -1, s.pkt_pair),
+        pkt_cand=torch.where(hit_p, -1, s.pkt_cand),
+        pkt_reroutes=s.pkt_reroutes + hit_p.to(I32),
+        task_state=torch.where(hit_t, WAITING, s.task_state),
+        task_rem=torch.where(hit_t & restart, c.task_mi, s.task_rem),
+        task_start=torch.where(hit_t, torch.nan, s.task_start),
+        task_vm=torch.where(hit_t, -1, s.task_vm),
+        vm_load=vm_load,
+        task_restarts=s.task_restarts + hit_t.to(I32))
+    return s, nc
+
+
+def _dead_masks(c: EngineConsts, s: SimState):
+    """Host and link dead masks ``[W, n]`` at each lane's clock: a device
+    is dead on ``[fail_t, recover_t)``."""
+    t = s.time[:, None]
+    return ((c.host_fail_t <= t) & (t < c.host_recover_t),
+            (c.link_fail_t <= t) & (t < c.link_recover_t))
+
+
+def _activate(c: EngineConsts, meta, pol, ph, aux, cache, nc, s: SimState):
     """Task activation, then packet activation with route choice.
 
     Legacy lanes need no channel feedback: their hash picks are one gather
     and their channel bump one integer scatter-add (exact in any order).
-    SDN lanes run the sequential controller scan.  Returns ``(s, links,
-    p_active, nc)``: the post-activation route links, active mask and
-    per-link channel counts feed rates and energy."""
+    SDN lanes run the sequential controller scan.  With failures a packet
+    waits until both its endpoint tasks are placed, SDN reads dead links
+    at bandwidth 0 (the legacy hash is failure-blind), and a re-activated
+    packet keeps its first start.  Returns ``(s, links, p_active, nc,
+    link_bw)``: the post-activation route links, active mask, per-link
+    channel counts and effective link bandwidth feed rates and energy."""
     t_ready = ((s.task_state == WAITING) & (s.task_got >= c.task_need)
                & (s.task_vm >= 0))
     s = s._replace(
@@ -610,6 +764,19 @@ def _activate(c: EngineConsts, pol, ph, aux, cache, nc, s: SimState):
     admitted = s.job_admitted[:, c.pkt_job.clamp(min=0).long()]
     p_ready = ((s.pkt_state == WAITING) & admitted & gate_ok & c.pkt_valid
                & cache["reachable"])
+    if meta.has_failures:
+        n_t = s.task_vm.shape[1]
+
+        def ep_placed(ref):
+            is_task = (ref >= 0) & (ref < NODE_OFFSET)
+            return ~is_task | (s.task_vm[:, ref.clamp(0, n_t - 1).long()]
+                               >= 0)
+
+        p_ready = (p_ready & ep_placed(c.pkt_src_task)
+                   & ep_placed(c.pkt_dst_task))
+        link_bw = torch.where(s.link_dead, 0.0, c.link_bw)      # [W, L]
+    else:
+        link_bw = c.link_bw
 
     if bool(p_ready.any()):
         pair_all = cache["pair"]
@@ -625,20 +792,27 @@ def _activate(c: EngineConsts, pol, ph, aux, cache, nc, s: SimState):
                 w, -1).long(), m.reshape(w, -1).to(I32))
         sdn = p_ready & is_sdn[:, None]
         if (ph["routing"] == ROUTE_SDN).any():
-            nc, cand = _sdn_scan(c, sdn, pair_all, c.link_bw, nc, cand)
+            nc, cand = _sdn_scan(c, sdn, pair_all, link_bw, nc, cand)
+        start = s.time[:, None]
+        if meta.has_failures:
+            # a reverted packet re-activates with its first start: its
+            # measured duration includes the outage
+            start = torch.where(torch.isnan(s.pkt_start), start,
+                                s.pkt_start)
         s = s._replace(
             pkt_state=torch.where(p_ready, ACTIVE, s.pkt_state),
             pkt_pair=torch.where(p_ready, pair_all, s.pkt_pair),
             pkt_cand=torch.where(p_ready, cand, s.pkt_cand),
-            pkt_start=torch.where(p_ready, s.time[:, None], s.pkt_start))
+            pkt_start=torch.where(p_ready, start, s.pkt_start))
 
     p_active = s.pkt_state == ACTIVE
-    return s, _route_links(c, s, p_active), p_active, nc
+    return s, _route_links(c, s, p_active), p_active, nc, link_bw
 
 
-def _rates(c: EngineConsts, meta, ph, s: SimState, links, p_active, nc):
+def _rates(c: EngineConsts, meta, ph, s: SimState, links, p_active, nc,
+           link_bw):
     """Piecewise-constant packet and task rates for this interval."""
-    pkt_rate = fairshare.rates(ph["traffic"], links, p_active, c.link_bw,
+    pkt_rate = fairshare.rates(ph["traffic"], links, p_active, link_bw,
                                meta.intra_bw, nc=nc)
     t_active = s.task_state == ACTIVE
     vm = s.task_vm.clamp(min=0).long()
@@ -648,6 +822,11 @@ def _rates(c: EngineConsts, meta, ph, s: SimState, links, p_active, nc):
         min=1).to(F32)
     task_rate = torch.where(t_active,
                             torch.minimum(c.vm_core_mips[vm], share), 0.0)
+    if meta.has_failures:
+        # a task stranded on a dead host executes nothing
+        host = c.vm_host[vm].clamp(0, c.host_fail_t.shape[0] - 1).long()
+        task_rate = torch.where(torch.gather(s.host_dead, 1, host), 0.0,
+                                task_rate)
     return pkt_rate, task_rate, t_active
 
 
@@ -697,16 +876,22 @@ def _make_aux(c: EngineConsts, pol) -> Dict[str, torch.Tensor]:
     }
 
 
-def _step(c: EngineConsts, meta, pol, ph, aux, s: SimState, cache, nc):
-    s, placed = _admit_and_place(c, meta, pol, ph, aux, s)
-    if bool(placed.any()):
+def _step(c: EngineConsts, meta, pol, ph, aux, s: SimState, cache, nc,
+          fail=None):
+    """One event.  ``fail`` is ``(dead masks, died)`` from the loop when
+    ``meta.has_failures`` (``_dead_masks`` and its host-side delta)."""
+    if meta.has_failures:
+        s, nc = _apply_failures(c, pol, s, nc, *fail)
+    s, placed, any_placed = _admit_and_place(c, meta, pol, ph, aux, s)
+    if any_placed:
         # placement changed -> the packet endpoint/pair cache is stale
         fresh = _endpoint_cache(c, meta, s)
         cache = {k: torch.where(placed[:, None], fresh[k], cache[k])
                  for k in cache}
-    s, links, p_active, nc = _activate(c, pol, ph, aux, cache, nc, s)
+    s, links, p_active, nc, link_bw = _activate(c, meta, pol, ph, aux,
+                                                cache, nc, s)
     pkt_rate, task_rate, t_active = _rates(c, meta, ph, s, links, p_active,
-                                           nc)
+                                           nc, link_bw)
 
     # earliest horizon (Eq. 4 generalized)
     inf = torch.inf
@@ -718,6 +903,12 @@ def _step(c: EngineConsts, meta, pol, ph, aux, s: SimState, cache, nc):
         c.job_release > s.time[:, None])
     dt_r = torch.where(future, c.job_release - s.time[:, None], inf).amin(1)
     dt = torch.minimum(torch.minimum(dt_p, dt_t), dt_r)
+    if meta.has_failures:
+        # fail/recover instants are rate breakpoints like job releases
+        t_col = s.time[:, None]
+        dt_f = torch.where(c.fail_breaks > t_col, c.fail_breaks - t_col,
+                           inf).amin(1)
+        dt = torch.minimum(dt, dt_f)
     stalled = torch.isinf(dt)
     dt = torch.where(stalled, 0.0, dt)
     dt_col = dt[:, None]
@@ -727,9 +918,13 @@ def _step(c: EngineConsts, meta, pol, ph, aux, s: SimState, cache, nc):
     n_h = c.host_total_mips.shape[0]
     mips_used = _mips_by_host(c.vm_host[vm_safe], t_active, task_rate, n_h)
     util = (mips_used / c.host_total_mips.clamp(min=1e-9)).clamp(0.0, 1.0)
+    if meta.has_failures:
+        util = torch.where(s.host_dead, 0.0, util)      # dead hosts draw 0 W
     host_energy = fma32(host_power(util, meta.energy), dt_col, s.host_energy)
     host_busy = s.host_busy + torch.where(util > 0, dt_col, 0.0)
     live_link = (nc > 0).to(I32)
+    if meta.has_failures:
+        live_link = torch.where(s.link_dead, 0, live_link)  # port is down
     ports = torch.zeros((nc.shape[0], meta.n_nodes), dtype=I32,
                         device=nc.device)
     ports.scatter_add_(1, c.link_src.long().expand_as(live_link), live_link)
@@ -737,6 +932,24 @@ def _step(c: EngineConsts, meta, pol, ph, aux, s: SimState, cache, nc):
     sw_ports = ports[:, meta.n_hosts:meta.n_hosts + meta.n_switches]
     switch_energy = fma32(switch_power(sw_ports, meta.energy), dt_col,
                           s.switch_energy)
+
+    job_downtime = s.job_downtime
+    if meta.has_failures:
+        # per-job downtime: admitted, not done, and nothing of the job
+        # moves over [t, t+dt)
+        n_j = s.job_downtime.shape[1]
+        prog_t = (t_active & (task_rate > 0) & c.task_valid).to(I32)
+        prog_p = (p_active & (pkt_rate > 0) & c.pkt_valid).to(I32)
+        prog = torch.zeros((prog_t.shape[0], n_j), dtype=I32,
+                           device=dt.device)
+        prog.scatter_add_(1, c.task_job.clamp(min=0).long().expand_as(
+            prog_t), prog_t)
+        prog.scatter_add_(1, c.pkt_job.clamp(min=0).long().expand_as(
+            prog_p), prog_p)
+        job_live = (s.job_admitted & (s.job_out_done < c.job_n_out)
+                    & c.job_valid)
+        job_downtime = job_downtime + torch.where(job_live & (prog == 0),
+                                                  dt_col, 0.0)
 
     # advance
     time = s.time + dt
@@ -776,7 +989,7 @@ def _step(c: EngineConsts, meta, pol, ph, aux, s: SimState, cache, nc):
         pkt_state=torch.where(p_done, DONE, s.pkt_state), pkt_rem=pkt_rem,
         pkt_finish=torch.where(p_done, time_col, s.pkt_finish),
         vm_load=vm_load, host_energy=host_energy, host_busy=host_busy,
-        switch_energy=switch_energy)
+        switch_energy=switch_energy, job_downtime=job_downtime)
     return s, cache, nc_next
 
 
@@ -814,12 +1027,22 @@ def make_packed_simulator(meta: SimMeta):
         nc = torch.zeros((width, meta.n_links), dtype=I32,
                          device=consts.link_bw.device)
         done = _finished(consts, meta, s)
+        fail = None
         while True:
-            done_h = done.cpu()
+            if meta.has_failures:
+                # the dead masks' delta rides in the finished flags' copy
+                dead = _dead_masks(consts, s)
+                died = ((dead[0] & ~s.host_dead).any(1)
+                        | (dead[1] & ~s.link_dead).any(1)) & ~done
+                flags = torch.cat([done, died]).cpu()
+                done_h = flags[:width]
+                fail = (dead, bool(flags[width:].any()))
+            else:
+                done_h = done.cpu()
             if bool(done_h.all()):
                 return s
             s_next, cache, nc = _step(consts, meta, pol, ph, aux, s, cache,
-                                      nc)
+                                      nc, fail)
             if bool(done_h.any()):
                 # frozen lanes keep their final state
                 s = SimState(*(torch.where(
@@ -837,3 +1060,35 @@ def make_simulator(setup: SimSetup, device=None):
     ``device`` (``None`` = CUDA)."""
     consts, meta = make_consts(setup, device)
     return partial(make_packed_simulator(meta), consts)
+
+
+def simulate(setup: SimSetup, policy=None, device=None) -> SimState:
+    """One replica through the cached runner: the unbatched final state
+    (policy: a ``PolicyConfig``, a mapping of scalars, or ``None`` for the
+    defaults; ``device=None`` = CUDA).  ``repro_torch.api.Experiment`` is
+    the front door; this is the reference's spelling."""
+    from ..api import runners  # local import: api sits above core
+    consts, meta = make_consts(setup, device)
+    return runners.get_runner(meta, "single")(consts,
+                                              as_policy_arrays(policy))
+
+
+def simulate_batch(setup: SimSetup, pols, device=None) -> SimState:
+    """A policy sweep as lanes of one loop: every value of ``pols`` has a
+    leading replica dim (missing registered fields broadcast their
+    default); leaves come out ``[P, ...]``."""
+    from ..api import runners
+    consts, meta = make_consts(setup, device)
+    return runners.get_runner(meta, "policy_batch")(
+        consts, lane_policies(as_policy_arrays(pols)))
+
+
+def simulate_scenarios(consts: EngineConsts, meta,
+                       pols: Dict[str, torch.Tensor]) -> SimState:
+    """Zipped batch over packed consts: every consts leaf and every policy
+    value shares one leading replica dim R, and replica i runs consts[i]
+    under pols[i] (on the consts' device).  Build consts with
+    ``scenarios.sweep.pack_setups``; for the scenario × policy cross
+    product use ``repro_torch.api.Experiment``."""
+    from ..api import runners
+    return runners.get_runner(meta, "zipped")(consts, pols)

@@ -16,9 +16,11 @@ run; chain runs for multi-outage studies).  Dead hosts draw 0 W and lose
 their WAITING/ACTIVE tasks to re-placement; dead links carry 0 bandwidth
 and kick their in-flight packets back to WAITING for re-routing.
 
-Port of ``src/repro/core/failures.py`` (numpy copy of the schedule types
-and their identity constructors).  The port's engine runs only the inert
-schedules so far and refuses a live one (ROADMAP queue 1 items 5 and 7).
+Port of ``src/repro/core/failures.py`` (a numpy copy).  The engine runs
+live outage schedules; a live ``DegradationSchedule`` is refused until
+ROADMAP queue 1 item 7, which also brings ``host_slowdown`` and
+``link_brownout``.  Seeded trace generators live in
+``repro_torch.scenarios.failures``.
 """
 from __future__ import annotations
 
@@ -47,6 +49,14 @@ class FailureSchedule:
     def any_failures(self) -> bool:
         return bool(np.isfinite(self.host_fail_t).any()
                     or np.isfinite(self.link_fail_t).any())
+
+    @property
+    def n_events(self) -> int:
+        """Count of finite fail/recover instants (drives the engine's
+        ``max_steps`` safety cap)."""
+        return int(sum(np.isfinite(a).sum() for a in (
+            self.host_fail_t, self.host_recover_t,
+            self.link_fail_t, self.link_recover_t)))
 
     def instants(self) -> np.ndarray:
         """All fail/recover instants as ONE f32 tensor (``inf`` = never),
@@ -96,6 +106,26 @@ def no_failures(n_hosts: int, n_links: int) -> FailureSchedule:
         link_fail_t=np.full(n_links, INF, np.float32),
         link_recover_t=np.full(n_links, INF, np.float32),
     )
+
+
+def host_crash(n_hosts: int, n_links: int, host: int, at: float,
+               recover_at: float = np.inf) -> FailureSchedule:
+    """One host dies at ``at`` (permanently unless ``recover_at``)."""
+    s = no_failures(n_hosts, n_links)
+    s.host_fail_t[host] = at
+    s.host_recover_t[host] = recover_at
+    return s.validate(n_hosts, n_links)
+
+
+def link_cut(n_hosts: int, n_links: int, links, at: float,
+             recover_at: float = np.inf) -> FailureSchedule:
+    """Cut the given directed link ids at ``at`` (a full-duplex cable is
+    two directed links — pass both ids to sever the cable)."""
+    s = no_failures(n_hosts, n_links)
+    for li in np.atleast_1d(links):
+        s.link_fail_t[li] = at
+        s.link_recover_t[li] = recover_at
+    return s.validate(n_hosts, n_links)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,7 +3,8 @@
 Port of ``src/repro/core/fairshare.py``.  Every function takes either one
 replica (``route_links [N, H]``, ``active [N]``) or a batch of lanes with
 a leading axis (``[W, N, H]``, ``[W, N]``, per-lane channel counts
-``[W, n_links]``); the link capacities ``link_bw [n_links]`` are shared.
+``[W, n_links]``); the link capacities are ``link_bw [n_links]``, shared,
+or ``[W, n_links]`` per lane (dead links at 0 under failures).
 
 Paper Eq. 3 (fair share): every channel crossing link i gets l_bw(i)/nc(i);
 a channel's rate is the minimum share along its route.  This is what
@@ -93,7 +94,7 @@ def waterfill_rates(route_links: torch.Tensor, active: torch.Tensor,
     """
     rl, act, _, single = _batched(route_links, active)
     w, n, h = rl.shape
-    n_links = link_bw.shape[0]
+    n_links = link_bw.shape[-1]
     n_iter = n_iter if n_iter is not None else min(n_links, 32)
     valid = rl >= 0
     safe = rl.clamp(min=0).long().reshape(w, n * h)

@@ -48,6 +48,15 @@ def job_report(setup: SimSetup, s: SimState) -> Dict[str, torch.Tensor]:
             setup.task_kind, setup.job_release)), s)
 
 
+def job_report_consts(consts, s: SimState) -> Dict[str, torch.Tensor]:
+    """The same metrics from one scenario's ``EngineConsts`` (e.g. a slice
+    of a packed sweep, whose job/packet tensors are padded).  Pad jobs
+    come out NaN; mask with ``consts.job_valid`` before aggregating."""
+    return job_report_arrays(consts.pkt_job, consts.pkt_phase,
+                             consts.task_job, consts.task_kind,
+                             consts.job_release, s)
+
+
 def job_report_arrays(pkt_job, pkt_phase, task_job, task_kind, job_release,
                       s: SimState) -> Dict[str, torch.Tensor]:
     n_j = job_release.shape[0]

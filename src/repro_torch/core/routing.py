@@ -158,7 +158,9 @@ def candidate_bottleneck_bw(routes_k: torch.Tensor, n_cand: torch.Tensor,
     routes_k : int [..., k_max, max_hops] link ids (-1 pad), one pair per
                leading index
     n_cand   : int [...]
-    link_bw  : f32 [n_links] (effective capacity)
+    link_bw  : f32 [n_links] or [..., n_links] (effective capacity: the
+               engine zeroes dead links, so a candidate crossing an outage
+               scores 0 and loses the argmax to any live route)
     ch_count : int [..., n_links] live channel counts
     returns  : f32 [..., k_max]  (-inf for invalid candidates)
     """
@@ -166,8 +168,11 @@ def candidate_bottleneck_bw(routes_k: torch.Tensor, n_cand: torch.Tensor,
     k_max, hops = routes_k.shape[-2:]
     valid_hop = routes_k >= 0
     safe = routes_k.clamp(min=0).long()
-    ch = torch.gather(ch_count, -1, safe.reshape(*lead, k_max * hops))
-    hop_bw = link_bw[safe] / (ch.reshape(safe.shape).to(link_bw.dtype) + 1.0)
+    flat = safe.reshape(*lead, k_max * hops)
+    ch = torch.gather(ch_count, -1, flat)
+    bw = link_bw[safe] if link_bw.dim() == 1 else torch.gather(
+        link_bw, -1, flat).reshape(safe.shape)
+    hop_bw = bw / (ch.reshape(safe.shape).to(link_bw.dtype) + 1.0)
     hop_bw = torch.where(valid_hop, hop_bw, torch.inf)
     bot = hop_bw.amin(-1)
     k_ids = torch.arange(k_max, device=routes_k.device)

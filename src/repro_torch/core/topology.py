@@ -47,6 +47,12 @@ class Topology:
     def n_links(self) -> int:
         return int(self.link_src.shape[0])
 
+    def host(self, i: int) -> int:
+        return i
+
+    def switch(self, i: int) -> int:
+        return self.n_hosts + i
+
     def storage(self, i: int = 0) -> int:
         return self.n_hosts + self.n_switches + i
 

@@ -2,25 +2,28 @@
 (DESIGN.md §5).
 
 Port of ``src/repro/scenarios/registry.py``: ``Scenario``, ``make_cluster``,
-``register`` and the five plain entries (``paper-fabric``, ``fat-tree``,
-``leaf-spine``, ``canonical-tree``, ``leaf-spine-xl``), each building the
-same ``SimSetup`` as the reference.  The failure, control-plane, chaos and
-streaming entries wait for their slices of the port; asking for one raises
-``NotImplementedError`` naming its ROADMAP item.
+``register``, the five plain entries (``paper-fabric``, ``fat-tree``,
+``leaf-spine``, ``canonical-tree``, ``leaf-spine-xl``) and the two failure
+entries (``paper-fabric-failures``, ``leaf-spine-failures``), each
+building the same ``SimSetup`` as the reference.  The control-plane, chaos
+and streaming entries wait for their slices of the port; asking for one
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
 from ..core.energy import EnergyParams
+from ..core.failures import FailureSchedule
 from ..core.mapreduce import ClusterSpec, JobSpec, SimSetup, build_setup
 from ..core.topology import (Topology, canonical_tree, fat_tree, leaf_spine,
                              paper_fat_tree)
 from ..core.usecase import (HOST_CORES, HOST_MIPS, VM_CORES, VM_CORE_MIPS,
                             paper_jobs)
+from .failures import random_failures
 from .workloads import (JobTemplate, bursty_workload, uniform_workload,
                         zipf_workload)
 
@@ -54,21 +57,25 @@ class Scenario:
     vms_per_host: int = 1
     split: int = 1
     k_max: int = 8
+    # optional seeded outage trace (DESIGN.md §7), built against the
+    # realized topology
+    failures: Optional[Callable[[Topology], FailureSchedule]] = None
 
     def build(self, device=None) -> SimSetup:
         """Lower to a ``SimSetup``; ``device`` (``None`` = CUDA) runs the
         route table's hop-distance step."""
+        topo = self.topology()
         return build_setup(list(self.workload()), make_cluster(
-            self.topology(), vms_per_host=self.vms_per_host),
-            k_max=self.k_max, split=self.split, device=device)
+            topo, vms_per_host=self.vms_per_host),
+            k_max=self.k_max, split=self.split,
+            failures=self.failures(topo) if self.failures else None,
+            device=device)
 
 
 _REGISTRY: Dict[str, Callable[..., Scenario]] = {}
 
 # reference registry entries that need a feature this port does not run yet
 _LATER = {
-    "paper-fabric-failures": "queue 1 item 5",
-    "leaf-spine-failures": "queue 1 item 5",
     "paper-fabric-ctrl": "queue 1 item 6",
     "leaf-spine-ctrl": "queue 1 item 6",
     "paper-fabric-chaos": "queue 1 item 7",
@@ -145,6 +152,46 @@ def _leaf_spine(n_spine: int = 4, n_leaf: int = 4, hosts_per_leaf: int = 4,
         topology=lambda: leaf_spine(n_spine, n_leaf, hosts_per_leaf),
         workload=lambda: zipf_workload(n_jobs=n_jobs, seed=seed),
         description=f"{n_spine}-spine/{n_leaf}-leaf Clos, Zipf job sizes",
+    )
+
+
+@register("paper-fabric-failures")
+def _paper_fabric_failures(seed: int = 0, n_each: int = 1, split: int = 2,
+                           k_max: int = 16, host_rate: float = 2e-4,
+                           link_rate: float = 2e-4, mttr: float = 120.0,
+                           horizon: float = 1500.0) -> Scenario:
+    """The paper fabric under a seeded exponential outage trace
+    (DESIGN.md §7): SDN's reroute around the failure against legacy's
+    static hash."""
+    return Scenario(
+        name="paper-fabric-failures",
+        topology=paper_fat_tree,
+        workload=lambda: paper_jobs(seed=seed, n_each=n_each),
+        description="paper §5 fabric + seeded host/link outages",
+        split=split,
+        k_max=k_max,
+        failures=lambda topo: random_failures(
+            topo, host_rate=host_rate, link_rate=link_rate, mttr=mttr,
+            horizon=horizon, seed=seed),
+    )
+
+
+@register("leaf-spine-failures")
+def _leaf_spine_failures(n_spine: int = 4, n_leaf: int = 4,
+                         hosts_per_leaf: int = 4, seed: int = 0,
+                         n_jobs: int = 6, link_rate: float = 5e-4,
+                         mttr: float = 60.0,
+                         horizon: float = 2000.0) -> Scenario:
+    """Leaf-spine Clos with link-only outages: with ``n_spine`` equal-hop
+    routes per inter-leaf pair, every cut is SDN-routable-around."""
+    return Scenario(
+        name=f"leaf-spine-failures-{n_spine}x{n_leaf}",
+        topology=lambda: leaf_spine(n_spine, n_leaf, hosts_per_leaf),
+        workload=lambda: zipf_workload(n_jobs=n_jobs, seed=seed),
+        description="leaf-spine Clos + seeded link cuts",
+        failures=lambda topo: random_failures(
+            topo, link_rate=link_rate, mttr=mttr, horizon=horizon,
+            seed=seed),
     )
 
 

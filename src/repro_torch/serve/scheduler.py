@@ -118,7 +118,11 @@ class ServeLoop:
                 self.free.append(slot)
         return done
 
-    def run(self, max_ticks: int = 10_000) -> List[Result]:
+    def run(self, until_empty: bool = True, max_ticks: int = 10_000
+            ) -> List[Result]:
+        """Tick until the queue and the slots are empty or ``max_ticks``
+        ran.  ``until_empty`` is accepted and ignored, as the reference
+        does."""
         out: List[Result] = []
         ticks = 0
         while (self.queue or self.active) and ticks < max_ticks:

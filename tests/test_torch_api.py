@@ -66,15 +66,21 @@ def test_job_report_equal_reference(both):
 
 
 def test_unported_axes_raise():
-    for kw, item in ((dict(failures=object()), "item 5"),
-                     (dict(ctrl=object()), "item 6"),
+    for kw, item in ((dict(ctrl=object()), "item 6"),
                      (dict(degradation=object()), "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             Experiment("paper-fabric", device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        Experiment(["paper-fabric", "leaf-spine"], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        Experiment("paper-fabric-failures", device="cpu")
+    # items 4 and 5 are ported: several scenarios, a failure axis and the
+    # failure registry entries build
+    from repro_torch.core.failures import no_failures
+    two = Experiment(["paper-fabric", "leaf-spine"], device="cpu")
+    assert two.scenario_names == ["paper-fabric", "leaf-spine-4x4"]
+    topo = two.scenarios[0][1].cluster.topo
+    crossed = Experiment("paper-fabric", device="cpu",
+                         failures=no_failures(topo.n_hosts, topo.n_links))
+    assert crossed.scenarios[0][1].failures is not None
+    live = Experiment("paper-fabric-failures", device="cpu")
+    assert live.scenarios[0][1].failures.any_failures
     exp = Experiment("canonical-tree", device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         exp.run_fleet()

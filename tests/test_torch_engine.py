@@ -2,7 +2,7 @@
 whole final SimState on {paper-fabric, leaf-spine, fat-tree,
 canonical-tree} × {SDN, legacy} × {Eq. 3, water-fill} × {least-used,
 round-robin, random} × policy seeds 0–2, run as 36 lanes of one port run
-per scenario.
+per scenario (``Results.states`` ``[1, 36, ...]``, as the reference's).
 
 Integer and bool leaves and ``steps`` must be equal; float leaves within
 rtol 1e-6 (NaN == NaN).  The port rounds its multiply-adds once, as the
@@ -47,10 +47,9 @@ def test_grid_equals_reference_policy_batch(scenario):
     ref = RefExperiment(scenario, [RefPolicyConfig(**g) for g in GRID]).run()
     port = Experiment(scenario, [PolicyConfig(**g) for g in GRID],
                       device="cpu").run()
-    ref_lanes = type(ref.states)(*(np.asarray(leaf)[0]
-                                   for leaf in ref.states))
-    assert not np.any(np.asarray(ref_lanes.stalled))
-    assert_states_match(port.states, ref_lanes, scenario)
+    ref_states = type(ref.states)(*(np.asarray(leaf) for leaf in ref.states))
+    assert not np.any(np.asarray(ref_states.stalled))
+    assert_states_match(port.states, ref_states, scenario)
 
 
 def test_lanes_equal_single_runs():

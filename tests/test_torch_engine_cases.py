@@ -126,11 +126,10 @@ def test_leaf_spine_xl_cut_equals_reference():
     ref = RefExperiment(ref_setup, RefPolicyConfig(job_concurrency=4)).run()
     port = Experiment(get_scenario("leaf-spine-xl", n_jobs=24).build("cpu"),
                       PolicyConfig(job_concurrency=4), device="cpu").run()
-    ref_lanes = type(ref.states)(*(np.asarray(leaf)[0]
-                                   for leaf in ref.states))
-    assert not bool(ref_lanes.stalled[0])
-    assert int(ref_lanes.steps[0]) > 100
-    assert_states_match(port.states, ref_lanes, "leaf-spine-xl/24")
+    ref_states = type(ref.states)(*(np.asarray(leaf) for leaf in ref.states))
+    assert not bool(ref_states.stalled[0, 0])
+    assert int(ref_states.steps[0, 0]) > 100
+    assert_states_match(port.states, ref_states, "leaf-spine-xl/24")
 
 
 def test_default_device_is_cuda():

@@ -1,8 +1,9 @@
 """The port on a CUDA device: the min-plus kernel bitwise against its plain
 version at every tile (one product, and the one-launch APSP at every
 number of squarings, with the squarings it ran), ``apsp`` against the
-numpy hop distances, a refused over-sized grid, a CUDA engine run
-against the CPU run, the flash-attention kernel against its plain version,
+numpy hop distances, a refused over-sized grid, CUDA engine runs
+(healthy, with failures, and the packed four-scenario grid) against the
+CPU runs, the flash-attention kernel against its plain version,
 a CUDA serving loop through the kernel against the same loop through the
 plain attention, and both selective-scan entry points against their plain
 versions with a Mamba serving loop through the kernel against the chunked
@@ -206,6 +207,28 @@ def test_cuda_run_equals_cpu_run(cuda):
             for r in (ROUTE_SDN, ROUTE_LEGACY) for p in (0, 1, 2)]
     gpu = Experiment("leaf-spine", pols, device=cuda).run()
     cpu = Experiment("leaf-spine", pols, device="cpu").run()
+    for name, a, b in zip(gpu.states._fields, gpu.states, cpu.states):
+        a = a.cpu()
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if a.dtype.is_floating_point:
+            assert torch.allclose(a, b, rtol=1e-6, atol=0.0,
+                                  equal_nan=True), name
+        else:
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("scenarios", [
+    "paper-fabric-failures", "leaf-spine-failures",
+    ["paper-fabric", "leaf-spine", "fat-tree", "canonical-tree"]],
+    ids=["paper-fabric-failures", "leaf-spine-failures", "grid"])
+def test_failures_and_grid_on_cuda_equal_cpu(cuda, scenarios):
+    """The failure path (restart and resume) and the packed heterogeneous
+    grid on the card against the same runs on the CPU."""
+    pols = [PolicyConfig(routing=r, recovery=rec, job_concurrency=2)
+            for r in (ROUTE_SDN, ROUTE_LEGACY) for rec in (0, 1)]
+    gpu = Experiment(scenarios, pols, device=cuda).run()
+    cpu = Experiment(scenarios, pols, device="cpu").run()
+    assert gpu.states.time.device.type == "cuda"
     for name, a, b in zip(gpu.states._fields, gpu.states, cpu.states):
         a = a.cpu()
         assert a.dtype == b.dtype and a.shape == b.shape, name

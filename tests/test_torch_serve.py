@@ -113,3 +113,22 @@ def test_loop_defaults_to_cuda(qwen_f32):
     with pytest.raises(RuntimeError, match="CUDA"):
         launch_serve.main(["--smoke"])
 
+
+
+def test_run_accepts_until_empty(qwen_f32):
+    """``run(True)`` is the reference's positional spelling of
+    ``run(until_empty=True)``: it answers what ``run()`` answers (it must
+    not be read as ``max_ticks``)."""
+    _, _, papi, pparams = qwen_f32
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(1, papi.cfg.vocab, 6).astype(np.int32)
+               for _ in range(3)]
+    out = {}
+    for args in ((), (True,)):
+        loop = ServeLoop(papi, pparams, slots=2, max_len=64, bucket=32,
+                         device="cpu")
+        for i, pr in enumerate(prompts):
+            loop.submit(Request(rid=i, prompt=pr, max_new=4))
+        out[args] = {r.rid: r.tokens for r in loop.run(*args)}
+    assert sorted(out[()]) == [0, 1, 2]
+    assert out[(True,)] == out[()]

@@ -123,12 +123,15 @@ def test_live_schedules_are_refused():
     topo = port.cluster.topo
     sched = no_failures(topo.n_hosts, topo.n_links)
     sched.host_fail_t[0] = 5.0
-    for kw, item in ((dict(failures=sched), "item 5"),
-                     (dict(ctrl=CtrlPlaneConfig(install_latency=0.1)),
+    for kw, item in ((dict(ctrl=CtrlPlaneConfig(install_latency=0.1)),
                       "item 6"),
                      (dict(spec_slots=1), "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             make_consts(dataclasses.replace(port, **kw), device="cpu")
+    # a live failure schedule is accepted (queue 1 item 5 is ported)
+    _, meta = make_consts(dataclasses.replace(port, failures=sched),
+                          device="cpu")
+    assert meta.has_failures
     # the inert schedules are accepted
     make_consts(dataclasses.replace(
         port, failures=no_failures(topo.n_hosts, topo.n_links)), device="cpu")
