@@ -33,8 +33,9 @@ Phases, each printed with its wall time:
    and its route table must take exactly one min-plus launch of 3
    squarings.
    ``paper-fabric`` and ``leaf-spine`` run under the same policy too; each
-   of the three prints its steps/s and, from a profiler trace of a second
-   run, the device's busy time and idle share;
+   of the three prints its steps/s and, from a profiler trace of its
+   first 200 steps run again (the whole run on the two small fabrics),
+   the device's busy time and idle share;
 6. the flash-attention kernel against its plain version on the card: its
    kernels' registers, shared memory and blocks an SM, and the count of
    tensor-core instructions (HGMMA, HMMA) in the bf16 kernel's SASS, which
@@ -98,7 +99,33 @@ Phases, each printed with its wall time:
    steps, steps/s and wall time of each trace's loop, the time from
    ``Experiment()`` to the final state, the device's idle share (a
    profiler trace of the seed-0 loop's first 200 steps run again), peak
-   device memory and the SDN-against-legacy rows.
+   device memory and the SDN-against-legacy rows;
+10. the control plane and chaos on CUDA: (a) ``paper-fabric-ctrl`` and
+   ``leaf-spine-ctrl`` under {SDN reactive, SDN proactive, legacy} (and
+   SDN with migration=congestion on ``leaf-spine-ctrl``),
+   ``paper-fabric-chaos`` and ``leaf-spine-chaos`` under {SDN, legacy} ×
+   speculation {off, on}, each at its registered size and equal to its
+   CPU run, the flow tables' conservation law (``occupied == installs -
+   evictions``, nothing left INSTALLING) on the CUDA states, and
+   ``paper-fabric-chaos``'s failover counters; (b) ``leaf-spine-xl`` at
+   its registered size with ``leaf-spine-ctrl``'s controller (0.02 s
+   install latency, 1000 rules/s, 8 slots, migration threshold 12, cost
+   0.5 s, cooldown 5 s) under SDN reactive, SDN proactive, legacy and SDN
+   with migration, as four lanes of one loop; (c) ``leaf-spine-xl`` under
+   ``leaf-spine-chaos``'s gray host slowdowns (``random_degradation(topo,
+   host_rate=2e-3, mean_factor=0.3, mttr=400, horizon=2000, seed=1)``)
+   with 2 clone slots a job under {SDN, legacy} × speculation {off, on}.
+   Each of (b) and (c), with every kernel's launch count reset just before
+   and read just after (one ``apsp_f32`` launch each), is equal to its CPU
+   run and prints its steps and steps/s, the time from ``Experiment()`` to
+   the final state, the device's idle share over its first 200 steps run
+   again under the profiler, the host syncs a step over the same window
+   (``torch.cuda.set_sync_debug_mode``) and the device operations a step
+   it issues (from a profiler trace), peak device memory, and per lane
+   the makespan, installs, evictions, reinstalls, queue wait and
+   migrations (and, for (c), clone launches and wins, wasted clone work
+   and degraded time).  The CPU runs that phase 10 is held against start
+   with the script in two worker processes and overlap phases 2-9.
 
 Then one JSON line with every kernel's numbers and design, the card's
 name and power limit, and last the line ``{"ok": true, "device":
@@ -151,10 +178,20 @@ XL_FAILURES = (("r0", dict(host_rate=0.0, link_rate=0.0)),
                ("r5e-5/s1", dict(host_rate=5e-5, link_rate=5e-5, mttr=120.0,
                                  horizon=3500.0, seed=1)))
 GRID_SCENARIOS = ("paper-fabric", "leaf-spine", "fat-tree", "canonical-tree")
-# the idle share's profiler window: the first steps of the seed-0 trace's
-# loop (the trace's processing grows with its events: with the whole
-# 1886-step loop profiled, phase 9 took 445 s beside an H100 80GB HBM3)
+# the idle share's profiler window: the first steps of a loop run again
+# (a trace's processing grows with its events: with the whole 1886-step
+# loop profiled, phase 9 took 445 s beside an H100 80GB HBM3)
 PROFILE_WINDOW_STEPS = 200
+
+# phase 10: the control-plane and chaos entries and their policy grids
+# (``phase10_policies``); (b) and (c) run leaf-spine-xl
+PHASE10_GRIDS = {"paper-fabric-ctrl": "ctrl", "leaf-spine-ctrl": "ctrl+mig",
+                 "paper-fabric-chaos": "chaos",
+                 "leaf-spine-chaos": "chaos"}
+PHASE10_XL = {"xl-ctrl": "ctrl+mig", "xl-chaos": "chaos"}
+
+# the worker processes of phase 10's CPU runs (stopped on exit)
+CPU_POOL: list = []
 
 # flash attention against its plain version: the reference's tolerances
 # (tests/test_kernels.py), float32 with TF32 off and bf16
@@ -298,6 +335,19 @@ def device_ms(fn, calls: int = 1, name: str | None = None):
     total_us = sum(e.self_device_time_total for e in prof.key_averages()
                    if name is None or name in e.key)
     return total_us / 1e3 / calls if total_us > 0 else None
+
+
+def device_ops(fn) -> int:
+    """Device operations (kernels, copies, fills) one run of ``fn``
+    issues, counted from a ``torch.profiler`` trace of the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.self_device_time_total > 0)
 
 
 def fenced_ms(fn, samples: int = 10):
@@ -639,12 +689,104 @@ def cell_matches_single(packed, single, meta, topo, label: str) -> None:
           f"{label}: a pad host or switch drew energy")
 
 
+def phase10_policies(kind: str):
+    """Phase 10's named policies for a registry entry or an xl cell:
+    {SDN reactive, SDN proactive, legacy} (and SDN with migration on a
+    cell whose controller arms it), or {SDN, legacy} × speculation {off,
+    on}; job_concurrency 2 on the registry entries, as
+    tests/test_torch_ctrlplane.py and tests/test_torch_chaos.py run them,
+    and 4, the profile policy's, on xl."""
+    from repro_torch.api import PolicyConfig
+    from repro_torch.core import (INSTALL_PROACTIVE, MIG_CONGESTION,
+                                  ROUTE_LEGACY, ROUTE_SDN, SPEC_OFF, SPEC_ON)
+    grid = {**PHASE10_GRIDS, **PHASE10_XL}[kind]
+    if grid == "chaos":
+        lanes = [(f"{r}{'-spec' if sp == SPEC_ON else ''}",
+                  dict(routing=rv, speculation=sp))
+                 for r, rv in (("sdn", ROUTE_SDN), ("legacy", ROUTE_LEGACY))
+                 for sp in (SPEC_OFF, SPEC_ON)]
+    else:
+        lanes = [("sdn", dict(routing=ROUTE_SDN)),
+                 ("sdn-proactive", dict(routing=ROUTE_SDN,
+                                        install_mode=INSTALL_PROACTIVE)),
+                 ("legacy", dict(routing=ROUTE_LEGACY))]
+        if grid == "ctrl+mig":
+            lanes.append(("sdn-migrate", dict(routing=ROUTE_SDN,
+                                              migration=MIG_CONGESTION)))
+    conc = 4 if kind in PHASE10_XL else 2
+    return [(n, PolicyConfig(job_concurrency=conc, **k)) for n, k in lanes]
+
+
+def phase10_scenario(kind: str):
+    """Phase 10's scenario: a registry name, or leaf-spine-xl at its
+    registered size with leaf-spine-ctrl's own controller (``xl-ctrl``) or
+    leaf-spine-chaos's own gray host slowdowns and 2 clone slots a job
+    (``xl-chaos``)."""
+    if kind in PHASE10_GRIDS:
+        return kind
+    from repro_torch.scenarios import get_scenario
+    from repro_torch.scenarios.failures import random_degradation
+    xl = get_scenario("leaf-spine-xl")
+    if kind == "xl-ctrl":
+        return dataclasses.replace(xl, ctrl=get_scenario(
+            "leaf-spine-ctrl").ctrl)
+    return dataclasses.replace(xl, spec_slots=2, degradation=(
+        lambda topo: random_degradation(topo, host_rate=2e-3,
+                                        mean_factor=0.3, mttr=400.0,
+                                        horizon=2000.0, seed=1)))
+
+
+def cpu_reference(kind: str):
+    """Phase 10's run of ``kind`` on the CPU, in a worker process started
+    with the script: the final states ``[1, P, ...]`` and the seconds."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    torch.set_num_threads(2)
+    from repro_torch.api import Experiment
+    t0 = time.perf_counter()
+    res = Experiment(phase10_scenario(kind), phase10_policies(kind),
+                     device="cpu").run()
+    return res.states, time.perf_counter() - t0
+
+
+def count_syncs(fn) -> int:
+    """Host syncs the CUDA runtime reports while ``fn`` runs
+    (``torch.cuda.set_sync_debug_mode``: a warning for each copy to the
+    host and each blocking call)."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def ctrl_conserved(states, label: str) -> None:
+    """The flow tables' conservation law on every lane, ``occupied ==
+    installs - evictions``, and no packet left parked INSTALLING."""
+    import torch
+    from repro_torch.core.mapreduce import INSTALLING
+    occupied = (states.ftab_pair >= 0).sum((-2, -1), dtype=torch.int32)
+    check(torch.equal(occupied, states.ctrl_installs - states.ctrl_evictions),
+          f"{label}: flow tables hold {occupied.tolist()} rules, installs "
+          f"less evictions are "
+          f"{(states.ctrl_installs - states.ctrl_evictions).tolist()}")
+    check(not bool((states.pkt_state == INSTALLING).any()),
+          f"{label}: a packet is left INSTALLING")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    import multiprocessing
     import numpy as np
 
     from repro_torch.api import (Experiment, PolicyConfig,
@@ -670,6 +812,13 @@ def main() -> int:
     from repro_torch.scenarios import get_scenario
     from repro_torch.scenarios.failures import failure_injector
     from repro_torch.scenarios.sweep import slice_packed
+
+    # phase 10's CPU runs, which its CUDA runs are held against, start
+    # now in two worker processes and overlap phases 2-9 (the xl
+    # controller cell's CPU run alone takes minutes)
+    CPU_POOL.append(multiprocessing.get_context("spawn").Pool(2))
+    cpu_jobs = {kind: CPU_POOL[0].apply_async(cpu_reference, (kind,))
+                for kind in (*PHASE10_XL, *PHASE10_GRIDS)}
 
     kernels = (minplus_kernel, fa_kernel, scan_kernel)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -948,12 +1097,22 @@ def main() -> int:
             rates[name] = steps / wall
             print(f"{name}: {steps} steps in {wall:.3f} s of engine run = "
                   f"{steps / wall:.1f} steps/s on CUDA")
-            # device busy time of a second run from a profiler trace; the
-            # idle share is against the unprofiled run's wall time
-            busy = device_ms(exp.run)
-            idle[name] = None if busy is None else 1 - busy / 1e3 / wall
-            print(f"{name}: device busy {busy} ms of {wall * 1e3:.3f} "
-                  f"ms wall, idle share {idle[name]}")
+            # device busy time over the first PROFILE_WINDOW_STEPS steps
+            # (the whole run on the two small fabrics) run again under the
+            # profiler, against the same window run unprofiled just before
+            consts, meta = exp.build()
+            loop = runners.get_runner(dataclasses.replace(
+                meta, max_steps=PROFILE_WINDOW_STEPS), "policy_batch")
+            window = lambda: loop(consts, exp.policy_arrays())  # noqa: E731
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            window_steps = int(window().steps.max())
+            window_s = time.perf_counter() - t0
+            busy = device_ms(window)
+            idle[name] = None if busy is None else 1 - busy / 1e3 / window_s
+            print(f"{name}: first {window_steps} steps: device busy {busy} "
+                  f"ms of {window_s * 1e3:.3f} ms wall, idle share "
+                  f"{idle[name]}")
             cpu = Experiment(name, profile, device="cpu").run()
             states_match(res.states, cpu.states, name)
             print(f"{name}: final state equals the CPU run")
@@ -1437,6 +1596,126 @@ def main() -> int:
                    "replicas": replicas},
             "phase_s": time.perf_counter() - t_phase9}
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("10 the control plane and chaos on CUDA"):
+        t_phase10 = time.perf_counter()
+        # (a) the four entries at their registered size, CUDA against the
+        # CPU, the tables' conservation law on the CUDA states
+        small = {}
+        for name in PHASE10_GRIDS:
+            pols = phase10_policies(name)
+            res = Experiment(name, pols, device="cuda").run()
+            cpu_states, cpu_s = cpu_jobs[name].get()
+            check(res.states.time.device.type == "cuda",
+                  f"{name} did not run on CUDA")
+            states_match(res.states, cpu_states, name)
+            ctrl_conserved(res.states, name)
+            rows = res.rows()
+            check(not any(r["stalled"] for r in rows), f"{name} stalled")
+            small[name] = {r["policy"]: {k: r[k] for k in (
+                "makespan_s", "rule_installs", "rule_evictions",
+                "vm_migrations", "spec_launches", "spec_wins",
+                "failover_count", "failover_park_s")} for r in rows}
+            small[name]["steps"] = res.states.steps[0].tolist()
+            print(f"{name}: equal to the CPU run, tables conserved; steps "
+                  f"{small[name]['steps']} ({res.policy_names}), makespan "
+                  f"{[round(r['makespan_s'], 3) for r in rows]} s, installs "
+                  f"{[r['rule_installs'] for r in rows]}, migrations "
+                  f"{[r['vm_migrations'] for r in rows]}, clones "
+                  f"{[r['spec_launches'] for r in rows]}")
+            if name == "paper-fabric-chaos":
+                print(f"paper-fabric-chaos: ctrl_failovers "
+                      f"{res.states.ctrl_failovers[0].tolist()}, "
+                      f"ctrl_failover_park "
+                      f"{res.states.ctrl_failover_park[0].tolist()} s")
+        check(small["leaf-spine-ctrl"]["sdn-migrate"]["vm_migrations"] > 0,
+              "leaf-spine-ctrl migrated no VM")
+
+        # (b), (c): leaf-spine-xl at its registered size under a priced
+        # controller, and under gray host slowdowns with speculation
+        xl_cells = {}
+        for xl in PHASE10_XL:
+            pols = phase10_policies(xl)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for kern in kernels:
+                kern.reset_launch_count()
+            t_main = time.perf_counter()
+            exp = Experiment(phase10_scenario(xl), pols, device="cuda")
+            consts, meta = exp.build()
+            t0 = time.perf_counter()
+            res = exp.run()
+            torch.cuda.synchronize()
+            loop_s = time.perf_counter() - t0
+            main_s = time.perf_counter() - t_main
+            mp = minplus_kernel.launch_counts()
+            sq = int(minplus_kernel.last_squarings())
+            other = fa_kernel.launch_count() + scan_kernel.launch_count()
+            peak = torch.cuda.max_memory_allocated()
+            check(mp == {"minplus_f32": 0, "apsp_f32": 1} and sq == 3,
+                  f"{xl}: min-plus launches {mp} of {sq} squarings, "
+                  f"expected one apsp_f32 of 3")
+            check(other == 0, f"{xl} launched flash or the scan")
+            check(res.states.time.device.type == "cuda",
+                  f"{xl} did not run on CUDA")
+            ctrl_conserved(res.states, xl)
+            rows = res.rows()
+            check(not any(r["stalled"] for r in rows), f"{xl} stalled")
+            steps = int(res.states.steps.max())
+            # the first PROFILE_WINDOW_STEPS steps again: unprofiled, under
+            # the profiler (the device's busy time), and counting syncs
+            loop = runners.get_runner(dataclasses.replace(
+                meta, max_steps=PROFILE_WINDOW_STEPS), "policy_batch")
+            window = lambda: loop(consts, exp.policy_arrays())  # noqa: E731
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            window_steps = int(window().steps.max())
+            window_s = time.perf_counter() - t0
+            busy = device_ms(window)
+            idle_share = None if busy is None else 1 - busy / 1e3 / window_s
+            syncs = count_syncs(window)
+            ops = device_ops(window)
+            cpu_states, cpu_s = cpu_jobs[xl].get()
+            states_match(res.states, cpu_states,
+                         f"{xl} against its CPU run")
+            keys = ("makespan_s", "rule_installs", "rule_evictions",
+                    "rule_reinstalls", "ctrl_queue_wait_s", "install_wait_s",
+                    "vm_migrations") + (
+                ("spec_launches", "spec_wins", "wasted_spec_work_s",
+                 "degraded_time_s") if xl == "xl-chaos" else ())
+            xl_cells[xl] = {
+                "loop_steps": steps,
+                "lane_steps": res.states.steps[0].tolist(),
+                "loop_s": loop_s, "steps_per_s": steps / loop_s,
+                "main_s": main_s, "apsp_launches": mp, "squarings": sq,
+                "peak_mib": peak / 2**20, "cpu_run_s": cpu_s,
+                "profile_window": {"steps": window_steps, "wall_s": window_s,
+                                   "busy_ms": busy,
+                                   "idle_share": idle_share,
+                                   "host_syncs": syncs,
+                                   "syncs_per_step": syncs / window_steps,
+                                   "device_ops": ops,
+                                   "ops_per_step": ops / window_steps},
+                "rows": {r["policy"]: {k: r[k] for k in keys}
+                         for r in rows}}
+            cell = xl_cells[xl]
+            print(f"{xl}: {steps} loop steps (lanes {cell['lane_steps']}) "
+                  f"in {loop_s:.3f} s = {cell['steps_per_s']:.1f} steps/s on "
+                  f"CUDA; {main_s:.3f} s from Experiment() to the final "
+                  f"state; min-plus launches {mp} ({sq} squarings); peak "
+                  f"device memory {cell['peak_mib']:.1f} MiB; first "
+                  f"{window_steps} steps: {window_s * 1e3:.3f} ms, device "
+                  f"busy {busy} ms, idle share {idle_share}, {syncs} host "
+                  f"syncs ({syncs / window_steps:.2f} a step), {ops} device "
+                  f"ops ({ops / window_steps:.1f} a step); equal to its "
+                  f"CPU run ({cpu_s:.1f} s in a worker)")
+            for pol, row in cell["rows"].items():
+                print(f"  {pol}: " + ", ".join(f"{k} {v}"
+                                                for k, v in row.items()))
+        ctrl_report = {"small": small, "xl": xl_cells,
+                       "phase_s": time.perf_counter() - t_phase10}
+
     t_fa = fa_times[LONG_PROMPT]
     print(json.dumps({"kernels": [{
         "name": "minplus_f32",
@@ -1464,7 +1743,10 @@ def main() -> int:
                  "launches": mp_launches["apsp_f32"],
                  "main_path_squarings": main_squarings,
                  "library_ms": None, "grid": xl_grid,
-                 "scenarios_max_abs_err": apsp_err, **xl_apsp},
+                 "scenarios_max_abs_err": apsp_err,
+                 "ctrl_chaos_launches": {k: v["apsp_launches"]
+                                         for k, v in xl_cells.items()},
+                 **xl_apsp},
         "fat_tree_32": {"entry": "apsp_f32", "squarings": ft_ran,
                         "squarings_needed": ft_need,
                         "launches": ft_made["apsp_f32"],
@@ -1532,7 +1814,7 @@ def main() -> int:
         "design": DESIGN["scan"],
         "occupancy": scan_occ,
     }], "steps_per_s": rates, "device_idle_share": idle,
-        "failures": failures_report,
+        "failures": failures_report, "ctrl_chaos": ctrl_report,
         "serve": serve, "serve_ssm": serve_ssm}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1542,4 +1824,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        for pool in CPU_POOL:      # stop phase 10's CPU workers
+            pool.terminate()
+            pool.join()
+    sys.exit(code)

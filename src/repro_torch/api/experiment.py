@@ -9,12 +9,12 @@ Port of ``src/repro/api/experiment.py``::
 
 covers a single run, a policy batch on one fabric (every policy × seed a
 lane of one engine loop) and a packed heterogeneous multi-topology grid
-(one loop per scenario, ``api.runners``), with the failure axis crossing
-every scenario with every outage trace, on ``device`` (``None`` = CUDA),
-and returns a ``Results`` grid ``[S, P, ...]``.  Not ported yet, each
-raising ``NotImplementedError`` with its ROADMAP item: the ``ctrl=`` and
-``degradation=`` axes (queue 1 items 6, 7), ``run_fleet`` (item 8) and
-``run_stream`` (item 9).
+(one loop per scenario, ``api.runners``), with the failure, gray-failure
+and control-plane axes crossing every scenario with every schedule or
+config, on ``device`` (``None`` = CUDA), and returns a ``Results`` grid
+``[S, P, ...]``.  Not ported yet, each raising ``NotImplementedError``
+with its ROADMAP item: ``run_fleet`` (queue 1 item 8) and ``run_stream``
+(item 9).
 """
 from __future__ import annotations
 
@@ -25,8 +25,9 @@ from typing import Any, List, Mapping, Optional, Sequence, Tuple
 import torch
 
 from ..core import policies as policy_mod
+from ..core.ctrlplane import CtrlPlaneConfig
 from ..core.engine import SimState, lane_policies, make_consts
-from ..core.failures import FailureSchedule
+from ..core.failures import DegradationSchedule, FailureSchedule
 from ..core.mapreduce import SimSetup
 from ..core.policies import as_policy_arrays, policy_fields
 from ..device import resolve
@@ -38,7 +39,8 @@ from .results import Results
 # kernel + packing) is paid once per process and device, not once per
 # Experiment.  Only registry-name scenarios are cacheable; Scenario
 # objects / raw SimSetups may differ run to run under the same name, and
-# failure crosses replace the setups' schedules after the build.
+# failure, degradation and ctrl crosses replace the setups' schedules and
+# configs after the build.
 _SETUP_CACHE: "OrderedDict[Tuple[str, str], Tuple[str, SimSetup]]" = \
     OrderedDict()
 _CONSTS_CACHE: "OrderedDict[Tuple, Any]" = OrderedDict()
@@ -157,9 +159,17 @@ class Experiment:
         either)`` pair.  Each scenario is replicated per schedule, so
         ``S = len(scenarios) * len(failures)``; the replicas share their
         base setup's route table.
-    ctrl, degradation:
-        The reference's control-plane and gray-failure axes; not ported
-        yet (ROADMAP queue 1 items 6, 7).
+    ctrl:
+        Optional control-plane configs (DESIGN.md §10).  One or a sequence
+        of: a ``CtrlPlaneConfig`` or a ``(name, config)`` pair.  Each
+        scenario is replicated per config.
+    degradation:
+        Optional gray-failure schedules (DESIGN.md §13).  One or a
+        sequence of: a ``DegradationSchedule``, a callable ``(SimSetup) ->
+        DegradationSchedule`` (e.g. ``scenarios.failures.
+        degradation_injector``), or a ``(name, either)`` pair.  Each
+        scenario is replicated per schedule.  The crosses compose as the
+        reference's: failures, then degradation, then ctrl.
     device:
         Keyword only.  Where the route-table build and the engine run;
         ``None`` = CUDA, which raises when no CUDA device is present.
@@ -169,21 +179,16 @@ class Experiment:
                  seeds: Optional[Sequence[int]] = None,
                  failures: Any = None, ctrl: Any = None,
                  degradation: Any = None, *, device=None):
-        for value, axis, item in ((ctrl, "ctrl", "item 6"),
-                                  (degradation, "degradation", "item 7")):
-            if value is not None:
-                raise NotImplementedError(
-                    f"Experiment({axis}=...) is not ported yet "
-                    f"(ROADMAP queue 1 {item})")
         self.device = resolve(device)
         # consts are cacheable across Experiments only when every scenario
-        # is a bare registry name and no failure cross replaces schedules
+        # is a bare registry name and no cross replaces schedules/configs
         items = (list(scenarios)
                  if isinstance(scenarios, (list, tuple))
                  and not _is_pair(scenarios, in_sequence=False)
                  else [scenarios])
         self._consts_key = (tuple(items) + (str(self.device),)
-                            if failures is None
+                            if failures is None and ctrl is None
+                            and degradation is None
                             and all(isinstance(i, str) for i in items)
                             else None)
         self.scenarios: List[Tuple[str, SimSetup]] = _normalize(
@@ -191,6 +196,10 @@ class Experiment:
             "scenario")
         if failures is not None:
             self.scenarios = _cross_failures(self.scenarios, failures)
+        if degradation is not None:
+            self.scenarios = _cross_degradation(self.scenarios, degradation)
+        if ctrl is not None:
+            self.scenarios = _cross_ctrl(self.scenarios, ctrl)
         pols = _normalize(
             policies, lambda p: (_policy_label(p), p), "policy")
         if seeds is not None:
@@ -216,7 +225,7 @@ class Experiment:
     def build(self):
         """-> (consts, SimMeta) on the device: unpacked for one scenario,
         packed (leading scenario dim) for several.  Memoized per instance
-        and, for registry-name scenario sets without a failure cross, in
+        and, for registry-name scenario sets without a cross, in
         the process-wide consts cache keyed by the names and the device
         (``consts_build_count``)."""
         if self._built is None:
@@ -305,6 +314,63 @@ def _cross_failures(scenarios: List[Tuple[str, SimSetup]],
             sched.validate(topo.n_hosts, topo.n_links)
             name = f"{sname}/{fname}" if len(named) > 1 else sname
             out.append((name, dataclasses.replace(setup, failures=sched)))
+    return out
+
+
+def _cross_degradation(scenarios: List[Tuple[str, SimSetup]],
+                       degradation: Any) -> List[Tuple[str, SimSetup]]:
+    """Replicate every scenario per degradation schedule (names suffixed
+    with the schedule label when there is more than one)."""
+    if isinstance(degradation, DegradationSchedule) \
+            or callable(degradation) \
+            or _is_pair(degradation, in_sequence=False):
+        degradation = [degradation]
+    named = []
+    for di, item in enumerate(degradation):
+        if _is_pair(item, in_sequence=True):
+            dname, spec = item
+        else:
+            dname, spec = f"d{di}", item
+        named.append((dname, spec))
+    out = []
+    for sname, setup in scenarios:
+        for dname, spec in named:
+            sched = spec(setup) if callable(spec) else spec
+            if not isinstance(sched, DegradationSchedule):
+                raise TypeError(
+                    f"cannot interpret {type(sched).__name__} as a "
+                    "DegradationSchedule")
+            topo = setup.cluster.topo
+            sched.validate(topo.n_hosts, topo.n_links)
+            name = f"{sname}/{dname}" if len(named) > 1 else sname
+            out.append((name, dataclasses.replace(setup,
+                                                  degradation=sched)))
+    return out
+
+
+def _cross_ctrl(scenarios: List[Tuple[str, SimSetup]],
+                ctrl: Any) -> List[Tuple[str, SimSetup]]:
+    """Replicate every scenario per control-plane config (names suffixed
+    with the config label when there is more than one)."""
+    if isinstance(ctrl, CtrlPlaneConfig) \
+            or _is_pair(ctrl, in_sequence=False):
+        ctrl = [ctrl]
+    named = []
+    for ci, item in enumerate(ctrl):
+        if _is_pair(item, in_sequence=True):
+            cname, cfg = item
+        else:
+            cname, cfg = f"c{ci}", item
+        if not isinstance(cfg, CtrlPlaneConfig):
+            raise TypeError(
+                f"cannot interpret {type(cfg).__name__} as a "
+                "CtrlPlaneConfig")
+        named.append((cname, cfg.validate()))
+    out = []
+    for sname, setup in scenarios:
+        for cname, cfg in named:
+            name = f"{sname}/{cname}" if len(named) > 1 else sname
+            out.append((name, dataclasses.replace(setup, ctrl=cfg)))
     return out
 
 

@@ -1,9 +1,8 @@
 """SDN control-plane model: flow-rule install latency, controller service
 capacity, flow-table caching and migrate-on-congestion (DESIGN.md §10).
 
-Port of ``src/repro/core/ctrlplane.py`` (numpy copy).  The port's engine
-runs only the identity config (``no_ctrl``) so far and refuses a live one
-(ROADMAP queue 1 item 6).
+Port of ``src/repro/core/ctrlplane.py`` (numpy copy); the port's engine
+runs every config, the identity (``no_ctrl``) as the plain program.
 
 The paper's controller is an instant oracle — routing decisions are free,
 flow rules appear with zero latency, capacity is infinite — which

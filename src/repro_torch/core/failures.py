@@ -16,10 +16,9 @@ run; chain runs for multi-outage studies).  Dead hosts draw 0 W and lose
 their WAITING/ACTIVE tasks to re-placement; dead links carry 0 bandwidth
 and kick their in-flight packets back to WAITING for re-routing.
 
-Port of ``src/repro/core/failures.py`` (a numpy copy).  The engine runs
-live outage schedules; a live ``DegradationSchedule`` is refused until
-ROADMAP queue 1 item 7, which also brings ``host_slowdown`` and
-``link_brownout``.  Seeded trace generators live in
+Port of ``src/repro/core/failures.py`` (a numpy copy), with the
+gray-failure ``DegradationSchedule`` (DESIGN.md §13) and its constructors
+``host_slowdown`` and ``link_brownout``.  Seeded trace generators live in
 ``repro_torch.scenarios.failures``.
 """
 from __future__ import annotations
@@ -172,6 +171,15 @@ class DegradationSchedule:
         pre-degradation program — same contract as ``any_failures``."""
         return bool(self._live_host.any() or self._live_link.any())
 
+    @property
+    def n_events(self) -> int:
+        """Finite slow/restore instants on live windows (drives the
+        engine's ``max_steps`` cap like ``FailureSchedule.n_events``)."""
+        lh, ll = self._live_host, self._live_link
+        return int(sum(np.isfinite(a[m]).sum() for a, m in (
+            (self.host_slow_t, lh), (self.host_restore_t, lh),
+            (self.link_slow_t, ll), (self.link_restore_t, ll))))
+
     def instants(self) -> np.ndarray:
         """All LIVE slow/restore instants as ONE f32 tensor (``inf`` =
         never), shape ``[2*n_hosts + 2*n_links]`` — fixed by the topology
@@ -225,3 +233,28 @@ def no_degradation(n_hosts: int, n_links: int) -> DegradationSchedule:
         link_restore_t=np.full(n_links, INF, np.float32),
         link_factor=np.ones(n_links, np.float32),
     )
+
+
+def host_slowdown(n_hosts: int, n_links: int, host: int, at: float,
+                  factor: float,
+                  restore_at: float = np.inf) -> DegradationSchedule:
+    """One host runs at ``factor`` x MIPS from ``at`` (forever unless
+    ``restore_at``) — the minimal straggler scenario."""
+    s = no_degradation(n_hosts, n_links)
+    s.host_slow_t[host] = at
+    s.host_restore_t[host] = restore_at
+    s.host_factor[host] = factor
+    return s.validate(n_hosts, n_links)
+
+
+def link_brownout(n_hosts: int, n_links: int, links, at: float,
+                  factor: float,
+                  restore_at: float = np.inf) -> DegradationSchedule:
+    """The given directed link ids carry ``factor`` x bandwidth from
+    ``at`` (pass both directions to throttle a full-duplex cable)."""
+    s = no_degradation(n_hosts, n_links)
+    for li in np.atleast_1d(links):
+        s.link_slow_t[li] = at
+        s.link_restore_t[li] = restore_at
+        s.link_factor[li] = factor
+    return s.validate(n_hosts, n_links)

@@ -76,9 +76,7 @@ def eq3_rates(route_links: torch.Tensor, active: torch.Tensor,
     share = torch.gather(share_l, 1, safe.reshape(w, -1)).reshape(rl.shape)
     share = torch.where(valid, share, torch.inf)
     bot = share.amin(-1)
-    bot = torch.where(torch.isinf(bot),
-                      torch.tensor(intra_bw, dtype=link_bw.dtype,
-                                   device=bot.device), bot)
+    bot = torch.where(torch.isinf(bot), intra_bw, bot)
     out = torch.where(act, bot, 0.0)
     return out[0] if single else out
 
@@ -133,9 +131,7 @@ def waterfill_rates(route_links: torch.Tensor, active: torch.Tensor,
     alloc = torch.where(live, fill_level(alloc, frozen, live), alloc)
     # intra-host flows
     empty = ~valid.any(-1)
-    alloc = torch.where(act & empty,
-                        torch.tensor(intra_bw, dtype=link_bw.dtype,
-                                     device=dev), alloc)
+    alloc = torch.where(act & empty, intra_bw, alloc)
     out = torch.where(act, alloc, 0.0)
     return out[0] if single else out
 

@@ -1,7 +1,9 @@
 """Scenario library: port of ``src/repro/scenarios`` (workloads, the
-registry, the failure-trace generators and the packed multi-topology
-sweep).  The arrival processes come with ROADMAP queue 1 item 9."""
-from .failures import failure_injector, random_failures
+registry, the failure and gray-failure trace generators and the packed
+multi-topology sweep).  The arrival processes come with ROADMAP queue 1
+item 9."""
+from .failures import (degradation_injector, failure_injector,
+                       random_degradation, random_failures)
 from .registry import (Scenario, get_scenario, list_scenarios, make_cluster,
                        register)
 from .sweep import SweepResult, pack_setups, policy_arrays, sweep_grid
@@ -13,4 +15,5 @@ __all__ = ["Scenario", "get_scenario", "list_scenarios", "make_cluster",
            "SweepResult", "pack_setups", "policy_arrays", "sweep_grid",
            "JobTemplate", "bursty_workload", "uniform_workload",
            "zipf_workload",
-           "failure_injector", "random_failures"]
+           "degradation_injector", "failure_injector",
+           "random_degradation", "random_failures"]

@@ -3,11 +3,13 @@
 
 Port of ``src/repro/scenarios/registry.py``: ``Scenario``, ``make_cluster``,
 ``register``, the five plain entries (``paper-fabric``, ``fat-tree``,
-``leaf-spine``, ``canonical-tree``, ``leaf-spine-xl``) and the two failure
-entries (``paper-fabric-failures``, ``leaf-spine-failures``), each
-building the same ``SimSetup`` as the reference.  The control-plane, chaos
-and streaming entries wait for their slices of the port; asking for one
-raises ``NotImplementedError`` naming its ROADMAP item.
+``leaf-spine``, ``canonical-tree``, ``leaf-spine-xl``), the two failure
+entries (``paper-fabric-failures``, ``leaf-spine-failures``), the two
+control-plane entries (``paper-fabric-ctrl``, ``leaf-spine-ctrl``) and the
+two chaos entries (``paper-fabric-chaos``, ``leaf-spine-chaos``), each
+building the same ``SimSetup`` as the reference.  The streaming entry
+waits for its slice of the port; asking for it raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -16,14 +18,15 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..core.ctrlplane import CtrlPlaneConfig
 from ..core.energy import EnergyParams
-from ..core.failures import FailureSchedule
+from ..core.failures import DegradationSchedule, FailureSchedule
 from ..core.mapreduce import ClusterSpec, JobSpec, SimSetup, build_setup
 from ..core.topology import (Topology, canonical_tree, fat_tree, leaf_spine,
                              paper_fat_tree)
 from ..core.usecase import (HOST_CORES, HOST_MIPS, VM_CORES, VM_CORE_MIPS,
                             paper_jobs)
-from .failures import random_failures
+from .failures import random_degradation, random_failures
 from .workloads import (JobTemplate, bursty_workload, uniform_workload,
                         zipf_workload)
 
@@ -60,6 +63,14 @@ class Scenario:
     # optional seeded outage trace (DESIGN.md §7), built against the
     # realized topology
     failures: Optional[Callable[[Topology], FailureSchedule]] = None
+    # optional control-plane resource model (DESIGN.md §10); None = the
+    # identity instant controller
+    ctrl: Optional[CtrlPlaneConfig] = None
+    # optional gray-failure trace (DESIGN.md §13), built against the
+    # realized topology
+    degradation: Optional[Callable[[Topology], DegradationSchedule]] = None
+    # speculative-execution clone slots per job (DESIGN.md §13)
+    spec_slots: int = 0
 
     def build(self, device=None) -> SimSetup:
         """Lower to a ``SimSetup``; ``device`` (``None`` = CUDA) runs the
@@ -69,17 +80,16 @@ class Scenario:
             topo, vms_per_host=self.vms_per_host),
             k_max=self.k_max, split=self.split,
             failures=self.failures(topo) if self.failures else None,
-            device=device)
+            ctrl=self.ctrl,
+            degradation=(self.degradation(topo)
+                         if self.degradation else None),
+            spec_slots=self.spec_slots, device=device)
 
 
 _REGISTRY: Dict[str, Callable[..., Scenario]] = {}
 
 # reference registry entries that need a feature this port does not run yet
 _LATER = {
-    "paper-fabric-ctrl": "queue 1 item 6",
-    "leaf-spine-ctrl": "queue 1 item 6",
-    "paper-fabric-chaos": "queue 1 item 7",
-    "leaf-spine-chaos": "queue 1 item 7",
     "leaf-spine-stream": "queue 1 item 9",
 }
 
@@ -225,4 +235,116 @@ def _canonical_tree(depth: int = 3, fanout: int = 2, hosts_per_edge: int = 4,
                                         root_bw_mult=2.0),
         workload=lambda: bursty_workload(n_jobs=n_jobs, seed=seed),
         description=f"depth-{depth} canonical tree, bursty arrivals",
+    )
+
+
+@register("paper-fabric-ctrl")
+def _paper_fabric_ctrl(seed: int = 0, n_each: int = 1, split: int = 2,
+                       k_max: int = 16, install_latency: float = 0.05,
+                       ctrl_rate: float = 500.0,
+                       table_slots: int = 8) -> Scenario:
+    """The paper fabric with the control plane as a real resource
+    (DESIGN.md §10): finite rule-install latency, a rate-limited
+    controller and LRU-bounded per-switch flow tables — where legacy
+    routing, which needs no flow-mod round trip, can beat SDN."""
+    return Scenario(
+        name="paper-fabric-ctrl",
+        topology=paper_fat_tree,
+        workload=lambda: paper_jobs(seed=seed, n_each=n_each),
+        description="paper §5 fabric + rate-limited controller with "
+                    "flow-rule install latency",
+        split=split,
+        k_max=k_max,
+        ctrl=CtrlPlaneConfig(install_latency=install_latency,
+                             ctrl_rate=ctrl_rate, table_slots=table_slots),
+    )
+
+
+@register("leaf-spine-ctrl")
+def _leaf_spine_ctrl(n_spine: int = 4, n_leaf: int = 4,
+                     hosts_per_leaf: int = 4, seed: int = 0, n_jobs: int = 6,
+                     install_latency: float = 0.02, ctrl_rate: float = 1000.0,
+                     table_slots: int = 8, mig_threshold: float = 12.0,
+                     mig_cost: float = 0.5, mig_cooldown: float = 5.0
+                     ) -> Scenario:
+    """Leaf-spine Clos under a finite controller with migrate-on-congestion
+    armed (DESIGN.md §10): ``migration=congestion`` re-homes hot VMs;
+    under ``migration=static`` the threshold is inert."""
+    return Scenario(
+        name=f"leaf-spine-ctrl-{n_spine}x{n_leaf}",
+        topology=lambda: leaf_spine(n_spine, n_leaf, hosts_per_leaf),
+        workload=lambda: zipf_workload(n_jobs=n_jobs, seed=seed),
+        description="leaf-spine Clos + finite controller, migration armed",
+        ctrl=CtrlPlaneConfig(install_latency=install_latency,
+                             ctrl_rate=ctrl_rate, table_slots=table_slots,
+                             mig_threshold=mig_threshold, mig_cost=mig_cost,
+                             mig_cooldown=mig_cooldown),
+    )
+
+
+@register("paper-fabric-chaos")
+def _paper_fabric_chaos(seed: int = 0, n_each: int = 1, split: int = 2,
+                        k_max: int = 16, host_rate: float = 2e-4,
+                        link_rate: float = 2e-4, mttr: float = 120.0,
+                        deg_host_rate: float = 1e-3,
+                        deg_link_rate: float = 1e-3,
+                        mean_factor: float = 0.4, deg_mttr: float = 300.0,
+                        horizon: float = 1500.0,
+                        install_latency: float = 0.05,
+                        ctrl_rate: float = 500.0, table_slots: int = 8,
+                        ctrl_fail_t: float = 60.0,
+                        ctrl_recover_t: float = 400.0,
+                        failover_delay: float = 2.0,
+                        backup_rate: float = 200.0,
+                        backup_latency: float = 0.1,
+                        spec_slots: int = 2) -> Scenario:
+    """The paper fabric under the whole chaos stack (DESIGN.md §13): hard
+    outages, gray slowdowns, a finite controller whose primary dies
+    mid-run and fails over to a slower backup, and clone slots armed."""
+    return Scenario(
+        name="paper-fabric-chaos",
+        topology=paper_fat_tree,
+        workload=lambda: paper_jobs(seed=seed, n_each=n_each),
+        description="paper §5 fabric + outages + gray degradation + "
+                    "controller failover + speculation slots",
+        split=split,
+        k_max=k_max,
+        failures=lambda topo: random_failures(
+            topo, host_rate=host_rate, link_rate=link_rate, mttr=mttr,
+            horizon=horizon, seed=seed),
+        degradation=lambda topo: random_degradation(
+            topo, host_rate=deg_host_rate, link_rate=deg_link_rate,
+            mean_factor=mean_factor, mttr=deg_mttr, horizon=horizon,
+            seed=seed + 1),
+        ctrl=CtrlPlaneConfig(install_latency=install_latency,
+                             ctrl_rate=ctrl_rate, table_slots=table_slots,
+                             ctrl_fail_t=ctrl_fail_t,
+                             ctrl_recover_t=ctrl_recover_t,
+                             failover_delay=failover_delay,
+                             backup_rate=backup_rate,
+                             backup_latency=backup_latency),
+        spec_slots=spec_slots,
+    )
+
+
+@register("leaf-spine-chaos")
+def _leaf_spine_chaos(n_spine: int = 4, n_leaf: int = 4,
+                      hosts_per_leaf: int = 4, seed: int = 0,
+                      n_jobs: int = 6, deg_host_rate: float = 2e-3,
+                      mean_factor: float = 0.3, deg_mttr: float = 400.0,
+                      horizon: float = 2000.0,
+                      spec_slots: int = 2) -> Scenario:
+    """Leaf-spine Clos with gray host slowdowns only (no outages, no
+    controller): isolates the straggler-speculation effect (DESIGN.md
+    §13)."""
+    return Scenario(
+        name=f"leaf-spine-chaos-{n_spine}x{n_leaf}",
+        topology=lambda: leaf_spine(n_spine, n_leaf, hosts_per_leaf),
+        workload=lambda: zipf_workload(n_jobs=n_jobs, seed=seed),
+        description="leaf-spine Clos + gray host slowdowns, speculation "
+                    "slots armed",
+        degradation=lambda topo: random_degradation(
+            topo, host_rate=deg_host_rate, mean_factor=mean_factor,
+            mttr=deg_mttr, horizon=horizon, seed=seed + 1),
+        spec_slots=spec_slots,
     )

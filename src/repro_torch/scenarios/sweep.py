@@ -37,7 +37,7 @@ import torch
 from ..core.ctrlplane import no_ctrl
 from ..core.engine import (EngineConsts, NODE_OFFSET, SimState,
                            UNREACHABLE_HOPS, default_max_steps,
-                           job_n_tasks_np, job_valid_mask, refuse_unported,
+                           job_n_tasks_np, job_valid_mask,
                            task_rank_in_job_np)
 from ..core.failures import no_degradation, no_failures
 from ..core.mapreduce import SimSetup
@@ -225,13 +225,13 @@ def pack_setups(setups: Sequence[SimSetup], device=None
                 ) -> Tuple[EngineConsts, SimMeta]:
     """Pad + stack setups into batched EngineConsts (leading dim =
     scenario) on ``device`` (``None`` = CUDA) and the shared static
-    ``SimMeta``.  Refuses, as ``make_consts`` does, a setup with a live
-    control-plane config, a live degradation schedule or speculation
-    slots."""
+    ``SimMeta``: its feature switches are on where some scenario's are, its
+    flow-table and clone-slot widths the largest.  A scenario without a
+    control-plane config runs its lanes with ``ctrl_on`` false and zero
+    counters."""
     assert len(setups) >= 1
     dev = resolve(device)
     for s in setups:
-        refuse_unported(s)
         if s.failures is not None:
             topo = s.cluster.topo
             s.failures.validate(topo.n_hosts, topo.n_links)
@@ -269,6 +269,15 @@ def pack_setups(setups: Sequence[SimSetup], device=None
         max_steps=max(default_max_steps(s) for s in setups),
         has_failures=any(s.failures is not None and s.failures.any_failures
                          for s in setups),
+        has_ctrl=any(s.ctrl is not None and s.ctrl.any_ctrl
+                     for s in setups),
+        ctrl_slots=max((s.ctrl.table_slots for s in setups
+                        if s.ctrl is not None and s.ctrl.any_ctrl),
+                       default=0),
+        has_degradation=any(
+            s.degradation is not None and s.degradation.any_degradation
+            for s in setups),
+        spec_slots=max(int(s.spec_slots) for s in setups),
     )
     return consts, meta
 

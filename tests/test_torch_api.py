@@ -66,21 +66,35 @@ def test_job_report_equal_reference(both):
 
 
 def test_unported_axes_raise():
-    for kw, item in ((dict(ctrl=object()), "item 6"),
-                     (dict(degradation=object()), "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            Experiment("paper-fabric", device="cpu", **kw)
-    # items 4 and 5 are ported: several scenarios, a failure axis and the
-    # failure registry entries build
+    """Only ``run_fleet`` (queue 1 item 8), ``run_stream`` and the
+    streaming registry entry (item 9) still raise; every other axis
+    builds: several scenarios, the failure, degradation and ctrl crosses,
+    and the failure, ctrl and chaos registry entries."""
+    from repro_torch.core import CtrlPlaneConfig
     from repro_torch.core.failures import no_failures
+    from repro_torch.scenarios import get_scenario
+    from repro_torch.scenarios.failures import degradation_injector
     two = Experiment(["paper-fabric", "leaf-spine"], device="cpu")
     assert two.scenario_names == ["paper-fabric", "leaf-spine-4x4"]
     topo = two.scenarios[0][1].cluster.topo
-    crossed = Experiment("paper-fabric", device="cpu",
-                         failures=no_failures(topo.n_hosts, topo.n_links))
-    assert crossed.scenarios[0][1].failures is not None
-    live = Experiment("paper-fabric-failures", device="cpu")
-    assert live.scenarios[0][1].failures.any_failures
+    crossed = Experiment(
+        "paper-fabric", device="cpu",
+        failures=no_failures(topo.n_hosts, topo.n_links),
+        degradation=[("d0", degradation_injector(host_rate=1e-3, seed=0)),
+                     ("d1", degradation_injector(host_rate=1e-3, seed=1))],
+        ctrl=CtrlPlaneConfig(install_latency=0.05))
+    assert crossed.scenario_names == ["paper-fabric/d0", "paper-fabric/d1"]
+    for _, setup in crossed.scenarios:
+        assert setup.failures is not None
+        assert setup.degradation.any_degradation and setup.ctrl.any_ctrl
+    _, meta = crossed.build()
+    assert meta.has_ctrl and meta.has_degradation
+    for name in ("paper-fabric-failures", "paper-fabric-ctrl",
+                 "leaf-spine-ctrl", "paper-fabric-chaos",
+                 "leaf-spine-chaos"):
+        Experiment(name, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        get_scenario("leaf-spine-stream")
     exp = Experiment("canonical-tree", device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         exp.run_fleet()

@@ -2,8 +2,8 @@
 version at every tile (one product, and the one-launch APSP at every
 number of squarings, with the squarings it ran), ``apsp`` against the
 numpy hop distances, a refused over-sized grid, CUDA engine runs
-(healthy, with failures, and the packed four-scenario grid) against the
-CPU runs, the flash-attention kernel against its plain version,
+(healthy, with failures, the packed four-scenario grid, the control
+plane and the chaos stack) against the CPU runs, the flash-attention kernel against its plain version,
 a CUDA serving loop through the kernel against the same loop through the
 plain attention, and both selective-scan entry points against their plain
 versions with a Mamba serving loop through the kernel against the chunked
@@ -23,7 +23,9 @@ import dataclasses
 
 from repro_torch.api import Experiment, PolicyConfig
 from repro_torch.configs import get_smoke_config
-from repro_torch.core import ROUTE_LEGACY, ROUTE_SDN
+from repro_torch.core import (INSTALL_PROACTIVE, MIG_CONGESTION,
+                              ROUTE_LEGACY, ROUTE_SDN)
+from repro_torch.core.mapreduce import INSTALLING
 from repro_torch.core.routing import hop_distances, hop_distances_np
 from repro_torch.core.topology import fat_tree
 from repro_torch.kernels.flash_attention import flash_attention
@@ -237,6 +239,38 @@ def test_failures_and_grid_on_cuda_equal_cpu(cuda, scenarios):
                                   equal_nan=True), name
         else:
             assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("name,pols", [
+    ("leaf-spine-ctrl",
+     [dict(routing=ROUTE_SDN),
+      dict(routing=ROUTE_SDN, install_mode=INSTALL_PROACTIVE),
+      dict(routing=ROUTE_LEGACY),
+      dict(routing=ROUTE_SDN, migration=MIG_CONGESTION)]),
+    ("paper-fabric-chaos",
+     [dict(routing=r, speculation=sp) for r in (ROUTE_SDN, ROUTE_LEGACY)
+      for sp in (0, 1)])], ids=["leaf-spine-ctrl", "paper-fabric-chaos"])
+def test_ctrl_and_chaos_on_cuda_equal_cpu(cuda, name, pols):
+    """The control plane (reactive, proactive, legacy, migration) and the
+    chaos stack (outages, gray windows, failover, speculation) on the card
+    against the same runs on the CPU; the flow tables conserve their
+    installs and nothing is left parked."""
+    pols = [PolicyConfig(job_concurrency=2, **k) for k in pols]
+    gpu = Experiment(name, pols, device=cuda).run()
+    cpu = Experiment(name, pols, device="cpu").run()
+    assert gpu.states.time.device.type == "cuda" and gpu.meta.has_ctrl
+    for field, a, b in zip(gpu.states._fields, gpu.states, cpu.states):
+        a = a.cpu()
+        assert a.dtype == b.dtype and a.shape == b.shape, field
+        if a.dtype.is_floating_point:
+            assert torch.allclose(a, b, rtol=1e-6, atol=0.0,
+                                  equal_nan=True), field
+        else:
+            assert torch.equal(a, b), field
+    st = gpu.states
+    occupied = (st.ftab_pair >= 0).sum((-2, -1), dtype=torch.int32)
+    assert torch.equal(occupied, st.ctrl_installs - st.ctrl_evictions)
+    assert not bool((st.pkt_state == INSTALLING).any())
 
 
 # b, sq, skv, h, kv, dh, causal, q_offset: a sweep shape, qwen3-4b's

@@ -117,21 +117,42 @@ def test_flow_hash_equal():
 
 
 def test_live_schedules_are_refused():
+    """No live schedule is refused any more: a failure schedule, a
+    control-plane config, a degradation schedule and clone slots each
+    turn on their ``SimMeta`` switch, as the reference's ``make_consts``
+    does, with the reference's step cap; the inert ones leave it off."""
+    from repro.core.ctrlplane import CtrlPlaneConfig as RefCtrl
+    from repro.core.failures import host_slowdown as ref_host_slowdown
     from repro_torch.core.ctrlplane import CtrlPlaneConfig
-    from repro_torch.core.failures import no_failures
-    _, port = _setups("paper-seed0")
+    from repro_torch.core.failures import (host_slowdown, no_degradation,
+                                           no_failures)
+    ref, port = _setups("paper-seed0")
     topo = port.cluster.topo
-    sched = no_failures(topo.n_hosts, topo.n_links)
+    n_h, n_l = topo.n_hosts, topo.n_links
+    sched = no_failures(n_h, n_l)
     sched.host_fail_t[0] = 5.0
-    for kw, item in ((dict(ctrl=CtrlPlaneConfig(install_latency=0.1)),
-                      "item 6"),
-                     (dict(spec_slots=1), "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            make_consts(dataclasses.replace(port, **kw), device="cpu")
-    # a live failure schedule is accepted (queue 1 item 5 is ported)
-    _, meta = make_consts(dataclasses.replace(port, failures=sched),
-                          device="cpu")
-    assert meta.has_failures
-    # the inert schedules are accepted
-    make_consts(dataclasses.replace(
-        port, failures=no_failures(topo.n_hosts, topo.n_links)), device="cpu")
+    cfg = dict(install_latency=0.1, table_slots=4)
+    for kw, ref_kw, switch in (
+            (dict(failures=sched), None, "has_failures"),
+            (dict(ctrl=CtrlPlaneConfig(**cfg)), dict(ctrl=RefCtrl(**cfg)),
+             "has_ctrl"),
+            (dict(degradation=host_slowdown(n_h, n_l, 0, 1.0, 0.5)),
+             dict(degradation=ref_host_slowdown(n_h, n_l, 0, 1.0, 0.5)),
+             "has_degradation"),
+            (dict(spec_slots=2), dict(spec_slots=2), "spec_slots")):
+        _, meta = make_consts(dataclasses.replace(port, **kw), device="cpu")
+        assert getattr(meta, switch), switch
+        if ref_kw is not None:
+            _, want = ref_make_consts(dataclasses.replace(ref, **ref_kw))
+            for f in ("max_steps", "has_ctrl", "ctrl_slots",
+                      "has_degradation", "spec_slots"):
+                assert getattr(meta, f) == getattr(want, f), (switch, f)
+    _, meta = make_consts(dataclasses.replace(port, ctrl=CtrlPlaneConfig(
+        **cfg)), device="cpu")
+    assert meta.ctrl_slots == 4
+    # the inert schedules leave every switch off
+    _, meta = make_consts(dataclasses.replace(
+        port, failures=no_failures(n_h, n_l), ctrl=CtrlPlaneConfig(),
+        degradation=no_degradation(n_h, n_l)), device="cpu")
+    assert not (meta.has_failures or meta.has_ctrl or meta.has_degradation
+                or meta.spec_slots or meta.ctrl_slots)
