@@ -125,7 +125,33 @@ Phases, each printed with its wall time:
    the makespan, installs, evictions, reinstalls, queue wait and
    migrations (and, for (c), clone launches and wins, wasted clone work
    and degraded time).  The CPU runs that phase 10 is held against start
-   with the script in two worker processes and overlap phases 2-9.
+   with the script in two worker processes and overlap phases 2-9;
+11. the fleet engine and the streaming ring on CUDA, each sub-phase with
+   every kernel's launch count reset just before and read just after and
+   the scenario built anew (one ``apsp_f32`` launch each): (a)
+   ``benchmarks/fleet_sweep.py``'s 512-cell grid (paper-fabric × {legacy,
+   SDN} × {least-used, round-robin} × 32 seeds × host-failure rates {0,
+   0.02, 0.05, 0.10}) through ``run_fleet(width=32, chunk_steps=32)``,
+   every cell equal to ``run()`` of the same grid on CUDA and to the CPU
+   run, with the ``FleetStats`` and both paths' wall time and sims/s; (b)
+   ``leaf-spine-xl`` under SDN × {least-used, round-robin}
+   (``tests/test_fleet.py``'s slow case) through ``run_fleet(width=2,
+   chunk_steps=64)`` equal to ``run()``, with
+   chunks, refills and steps/s; (c) a finite trace that fits the ring on
+   ``leaf-spine``: ``run_stream`` equal to ``run()`` on the same
+   ``ring_setup`` under three policies; (d) ``leaf-spine-stream``'s
+   two-class Poisson mix streamed through ``leaf-spine-xl``'s fabric
+   (``STREAM_RATE``, ``STREAM_HORIZON``, 32 slots, chunks of 128 events)
+   under SDN and legacy, and a second SDN lane at ``job_concurrency=8``
+   in the SDN lane's cohort, equal to its CPU run (job rows,
+   ``StreamStats``), the streaming ledger held, at least 4 × slots
+   refills a lane, the two-lane cohort's rings seen to hold different
+   jobs; trace length, loads, refills, chunks, loop steps and steps/s,
+   wall jobs/s, each policy's steady-state summary, the idle share, host
+   syncs and device ops a step over a window (the same stream through
+   ``run_stream`` on its arrivals below ``PROFILE_STREAM_HORIZON``, ~250
+   events), and peak device memory.
+   Its CPU runs join phase 10's worker pool at the start.
 
 Then one JSON line with every kernel's numbers and design, the card's
 name and power limit, and last the line ``{"ok": true, "device":
@@ -190,8 +216,28 @@ PHASE10_GRIDS = {"paper-fabric-ctrl": "ctrl", "leaf-spine-ctrl": "ctrl+mig",
                  "leaf-spine-chaos": "chaos"}
 PHASE10_XL = {"xl-ctrl": "ctrl+mig", "xl-chaos": "chaos"}
 
-# the worker processes of phase 10's CPU runs (stopped on exit)
+# the worker processes of phase 10's and phase 11's CPU runs (stopped on
+# exit)
 CPU_POOL: list = []
+
+# phase 11: benchmarks/fleet_sweep.py's grid (build_grid(512)), and the
+# stream at scale.  leaf-spine-stream's mix at 0.4 jobs/s (8x its 0.05
+# for xl's 8x the hosts) outruns the SDN lane, which retires ~0.046
+# jobs/s at job_concurrency=4 (benchmarks/torch_stream_backlog.py: its
+# mean sojourn grows 548 -> 3932 s over the trace); 0.03 jobs/s is ~65 %
+# of that.  The horizon gives 164 arrivals: 132 refills a lane, above 4
+# x 32 slots (8000 s, 240 arrivals, put the script over 1000 s of phases
+# on a slow host)
+FLEET_FAIL_RATES = (0.0, 0.02, 0.05, 0.10)
+FLEET_SEEDS = 32
+STREAM_RATE = 0.03
+STREAM_HORIZON = 6000.0
+STREAM_SLOTS = 32
+STREAM_CHUNK = 128
+# 11(d)'s idle-share window: the same stream, in the full trace's ring
+# geometry, on the arrivals below this time (20 of them, 249 loop steps)
+PROFILE_STREAM_HORIZON = 800.0
+PHASE11_CPU = ("fleet-grid", "xl-stream")
 
 # flash attention against its plain version: the reference's tolerances
 # (tests/test_kernels.py), float32 with TF32 off and bf16
@@ -337,17 +383,23 @@ def device_ms(fn, calls: int = 1, name: str | None = None):
     return total_us / 1e3 / calls if total_us > 0 else None
 
 
-def device_ops(fn) -> int:
-    """Device operations (kernels, copies, fills) one run of ``fn``
-    issues, counted from a ``torch.profiler`` trace of the card."""
+def device_profile(fn):
+    """``(busy ms, device ops)`` of one run of ``fn`` from one
+    ``torch.profiler`` trace of the card: the summed device time of its
+    kernels, copies and fills (``None`` when the trace holds none), and
+    how many it issued.  One trace for both: processing a trace of ~180k
+    device ops takes tens of seconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.self_device_time_total > 0)
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in events)
+    return (busy_us / 1e3 if busy_us > 0 else None,
+            sum(e.count for e in events))
 
 
 def fenced_ms(fn, samples: int = 10):
@@ -780,6 +832,346 @@ def ctrl_conserved(states, label: str) -> None:
           f"{label}: a packet is left INSTALLING")
 
 
+def fleet_grid(device):
+    """Phase 11(a): ``benchmarks/fleet_sweep.py``'s ``build_grid(512)`` on
+    the port: paper-fabric × {legacy, SDN} × {least-used, round-robin} ×
+    32 seeds (P = 128) × host-failure rates (S = 4)."""
+    from repro_torch.api import Experiment
+    from repro_torch.scenarios.failures import failure_injector
+    pols = [(f"{rn}/{pn}/s{s}", dict(routing=r, placement=p, seed=s))
+            for rn, r in (("legacy", 0), ("sdn", 1))
+            for pn, p in (("least-used", 0), ("round-robin", 1))
+            for s in range(FLEET_SEEDS)]
+    fails = [(f"host{int(rate * 100)}pct",
+              failure_injector(host_rate=rate, mttr=20.0, horizon=500.0))
+             for rate in FLEET_FAIL_RATES]
+    return Experiment("paper-fabric", pols, failures=fails, device=device)
+
+
+def stream_policies():
+    """``benchmarks/stream_sweep.py``'s two lanes, and a third in the SDN
+    lane's cohort (the same routing, traffic and placement) at
+    ``job_concurrency=8``: it retires and refills its ring slots at other
+    times, so the cohort's streamed consts carry a lane axis of width 2."""
+    from repro_torch.api import PolicyConfig
+    from repro_torch.core import ROUTE_LEGACY, ROUTE_SDN
+    return [("sdn", PolicyConfig(routing=ROUTE_SDN, job_concurrency=4)),
+            ("legacy", PolicyConfig(routing=ROUTE_LEGACY,
+                                    job_concurrency=4)),
+            ("sdn-c8", PolicyConfig(routing=ROUTE_SDN, job_concurrency=8))]
+
+
+def xl_stream(device):
+    """Phase 11(d): ``leaf-spine-stream``'s arrival mix through
+    ``leaf-spine-xl``'s fabric; the experiment and a run of the stream to
+    ``horizon`` (by default the phase's, in its own ring geometry)."""
+    from repro_torch.api import Experiment
+    from repro_torch.scenarios.registry import stream_arrivals
+    exp = Experiment("leaf-spine-xl", stream_policies(), device=device)
+
+    def run(horizon=STREAM_HORIZON, spec=None):
+        return exp.run_stream(
+            stream_arrivals(rate=STREAM_RATE, seed=0), horizon,
+            warmup=0.1 * horizon, slots=STREAM_SLOTS,
+            chunk_steps=STREAM_CHUNK, spec=spec)
+    return exp, run
+
+
+def cpu_reference11(kind: str):
+    """Phase 11's run of ``kind`` on the CPU, in a worker process started
+    with the script: the grid's states, or the stream's stats and job
+    rows, and the seconds."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    if kind == "fleet-grid":
+        out = fleet_grid("cpu").run().states
+    else:
+        res = xl_stream("cpu")[1]()
+        out = (vars(res.stats), res.jobs)
+    return out, time.perf_counter() - t0
+
+
+class LaneSpread:
+    """Counts the ring generations ``run_stream`` uploads while it is
+    entered, and those in which a cohort's first and last lanes held
+    different jobs: a cohort of two or more lanes whose rings diverged,
+    so its streamed consts' lane axis carried different rows."""
+
+    def __enter__(self):
+        from repro_torch.api import stream
+        from repro_torch.core.streaming import STREAM_FIELDS
+        self.uploads = self.diverged = 0
+        self._stream, self._upload = stream, stream._upload
+
+        def counted(consts0, host, dev):
+            self.uploads += 1
+            self.diverged += any(bool((host[f][0] != host[f][-1]).any())
+                                 for f in STREAM_FIELDS)
+            return self._upload(consts0, host, dev)
+        stream._upload = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._stream._upload = self._upload
+        return False
+
+
+class StepCounter:
+    """Counts the engine's events (``_step`` calls) while it is entered:
+    a run's loop steps over every lane group, chunk and refill."""
+
+    def __enter__(self):
+        from repro_torch.core import engine
+        self.n, self._engine, self._step = 0, engine, engine._step
+
+        def counted(*args, **kw):
+            self.n += 1
+            return self._step(*args, **kw)
+        engine._step = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._engine._step = self._step
+        return False
+
+
+def stream_ledger(res, label: str) -> None:
+    """``tests/invariants.py::check_stream`` on a ``StreamResults``: every
+    arrival loads and retires exactly once a lane, the refill count
+    balances, job stamps are ordered and boundary clocks and cumulative
+    energy never go backwards.  A job is released at its arrival instant
+    rounded to the engine's float32 clock, so admission is held against
+    that (the float32 spacing passes the 1e-4 slack above 2048 s)."""
+    import numpy as np
+    st, tol = res.stats, 1e-4
+    check(st.loads == st.retired == st.trace_len * st.lanes,
+          f"{label}: loads {st.loads}, retired {st.retired}, trace "
+          f"{st.trace_len} x {st.lanes} lanes")
+    check(st.refills == st.loads - min(st.slots, st.trace_len) * st.lanes,
+          f"{label}: refill ledger broken")
+    for pi in range(res.n_policies):
+        j, smp = res.jobs[pi], res.samples[pi]
+        check(np.array_equal(np.sort(j["seq"]), np.arange(st.trace_len)),
+              f"{label}/{pi}: arrivals not retired exactly once")
+        check(bool(np.all(np.isfinite(j["t_done"]))
+                   and np.all(j["t_admit"] >= j["t_arr"].astype(np.float32)
+                              - tol)
+                   and np.all(j["t_done"] >= j["t_admit"] - tol)),
+              f"{label}/{pi}: job stamps out of order")
+        check(bool(np.all(np.diff(smp[:, 0]) >= -tol)
+                   and np.all(np.diff(smp[:, 1:], axis=0) >= -1e-3)),
+              f"{label}/{pi}: boundary samples went backwards")
+
+
+def phase11(kernels, cpu_jobs) -> dict:
+    """Phase 11: the fleet engine and the streaming ring on CUDA; returns
+    the report."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Experiment, PolicyConfig, consts_cache_clear
+    from repro_torch.core import (ROUTE_LEGACY, ROUTE_SDN, TRAFFIC_WATERFILL,
+                                  PLACE_ROUND_ROBIN)
+    from repro_torch.core.streaming import RingSpec, ring_setup
+    from repro_torch.scenarios import get_scenario
+    from repro_torch.scenarios.arrivals import TraceArrivals
+    from repro_torch.scenarios.registry import stream_arrivals
+    minplus_kernel = kernels[0]
+    report = {}
+
+    def start():
+        consts_cache_clear()      # build the scenario's route table anew
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in kernels:
+            kern.reset_launch_count()
+
+    def launches(label):
+        mp = minplus_kernel.launch_counts()
+        other = sum(k.launch_count() for k in kernels[1:])
+        check(mp == {"minplus_f32": 0, "apsp_f32": 1},
+              f"{label}: min-plus launches {mp}, expected one apsp_f32")
+        check(other == 0, f"{label} launched flash or the scan")
+        return mp["apsp_f32"]
+
+    # (a) the 512-cell fleet grid
+    start()
+    exp = fleet_grid("cuda")
+    with StepCounter() as steps:
+        t0 = time.perf_counter()
+        fleet, fst = exp.run_fleet(width=32, chunk_steps=32,
+                                   return_stats=True)
+        torch.cuda.synchronize()
+        fleet_s = time.perf_counter() - t0
+    apsp_a = launches("fleet grid")
+    t0 = time.perf_counter()
+    serial = exp.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    check(fleet.states.time.device.type == "cuda",
+          "the fleet did not run on CUDA")
+    sims = len(fleet)
+    check(sims == fst.sims == 512, f"the grid has {sims} cells")
+    states_match(fleet.states, serial.states, "fleet grid against run()")
+    cpu_states, cpu_s = cpu_jobs["fleet-grid"].get()
+    states_match(fleet.states, cpu_states, "fleet grid against the CPU")
+    report["fleet_grid"] = {
+        "stats": vars(fst), "fleet_s": fleet_s, "run_s": run_s,
+        "fleet_sims_per_s": sims / fleet_s, "run_sims_per_s": sims / run_s,
+        "fleet_loop_steps": steps.n, "apsp_launches": apsp_a,
+        "cpu_run_s": cpu_s,
+        "max_lane_steps": int(fleet.states.steps.max())}
+    print(f"fleet grid {fleet.n_scenarios} x {fleet.n_policies}: {fst}; "
+          f"run_fleet {fleet_s:.3f} s = {sims / fleet_s:.1f} sims/s "
+          f"({steps.n} loop steps), run() {run_s:.3f} s = "
+          f"{sims / run_s:.1f} sims/s; every cell equal to run() on CUDA "
+          f"and to the CPU run ({cpu_s:.1f} s in a worker); apsp_f32 "
+          f"launches {apsp_a}")
+
+    # (b) leaf-spine-xl through the fleet: tests/test_fleet.py's slow case,
+    # SDN x {least-used, round-robin}.  The legacy lanes' 7108 more loop
+    # steps put the script over 1000 s of phases on a slow host; they go
+    # before phase 10(b)'s lanes because each static signature is a cohort
+    # of its own, a loop run after the others, while 10(b)'s four lanes
+    # share one loop, whose step costs about what a one-lane step does.
+    # Legacy routing still runs the fleet chunk on xl's fabric in (d)
+    pols = [(f"sdn/{pn}", PolicyConfig(routing=ROUTE_SDN, placement=p))
+            for pn, p in (("least-used", 0), ("round-robin", 1))]
+    start()
+    exp = Experiment("leaf-spine-xl", pols, device="cuda")
+    with StepCounter() as steps:
+        t0 = time.perf_counter()
+        fleet, fst = exp.run_fleet(width=2, chunk_steps=64,
+                                   return_stats=True)
+        torch.cuda.synchronize()
+        fleet_s = time.perf_counter() - t0
+    apsp_b = launches("xl fleet")
+    serial = exp.run()
+    states_match(fleet.states, serial.states, "xl fleet against run()")
+    report["xl_fleet"] = {
+        "stats": vars(fst), "fleet_s": fleet_s, "loop_steps": steps.n,
+        "steps_per_s": steps.n / fleet_s, "apsp_launches": apsp_b,
+        "lane_steps": fleet.states.steps[0].tolist()}
+    print(f"xl fleet {fleet.policy_names}: chunks {fst.chunks}, refills "
+          f"{fst.refills}, cohorts {fst.cohorts}, lane steps "
+          f"{report['xl_fleet']['lane_steps']}, {steps.n} loop steps in "
+          f"{fleet_s:.3f} s = {steps.n / fleet_s:.1f} steps/s; equal to "
+          f"run(); apsp_f32 launches {apsp_b}")
+
+    # (c) a finite trace that fits the ring: run_stream == run() on its
+    # ring_setup
+    start()
+    setup = get_scenario("leaf-spine", n_jobs=3).build("cuda")
+    apsp_c = launches("leaf-spine ring")
+    arrivals = TraceArrivals(jobs=tuple(setup.jobs))
+    jobs = [a.job for a in arrivals.events(1e9)]
+    cpols = [("sdn", PolicyConfig(routing=ROUTE_SDN, job_concurrency=2)),
+             ("legacy", PolicyConfig(routing=ROUTE_LEGACY, job_concurrency=2,
+                                     placement=PLACE_ROUND_ROBIN)),
+             ("wfill", PolicyConfig(routing=ROUTE_SDN,
+                                    traffic=TRAFFIC_WATERFILL, seed=1))]
+    res = Experiment(("leaf-spine", setup), cpols, device="cuda").run_stream(
+        arrivals, 1e9, slots=len(jobs), return_states=True)
+    check(res.stats.refills == 0, "the finite trace refilled")
+    rs = ring_setup(jobs, setup.cluster, RingSpec.for_jobs(
+        jobs, slots=len(jobs)), route_table=setup.route_table)
+    ref = Experiment(("ring", rs), cpols, device="cuda").run()
+    for pi, (pname, _) in enumerate(cpols):
+        states_match(res.final_states[pi], ref.state(0, pi),
+                     f"finite trace {pname}")
+    report["finite_trace"] = {"jobs": len(jobs), "apsp_launches": apsp_c}
+    print(f"finite trace of {len(jobs)} jobs on leaf-spine: run_stream "
+          f"equals run() on its ring_setup under {[n for n, _ in cpols]}")
+
+    # (d) the stream at scale
+    start()
+    with StepCounter() as steps, LaneSpread() as spread:
+        t0 = time.perf_counter()
+        exp, stream = xl_stream("cuda")
+        res = stream()
+        torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t0
+    apsp_d = launches("xl stream")
+    peak = torch.cuda.max_memory_allocated()
+    st = res.stats
+    stream_ledger(res, "xl stream")
+    check(st.refills >= 4 * st.slots * st.lanes,
+          f"xl stream: {st.refills} refills, fewer than 4 x {st.slots} "
+          f"slots a lane")
+    check(st.cohorts < st.lanes and spread.diverged > 0,
+          f"xl stream: no cohort of two lanes held different jobs "
+          f"({st.cohorts} cohorts of {st.lanes} lanes)")
+    cpu_out, cpu_s = cpu_jobs["xl-stream"].get()
+    check(vars(st) == cpu_out[0], f"xl stream: stats {vars(st)} differ "
+                                  f"from the CPU's {cpu_out[0]}")
+    for pi in range(res.n_policies):
+        got, want = res.jobs[pi], cpu_out[1][pi]
+        check(np.array_equal(got["seq"], want["seq"])
+              and np.array_equal(got["cls"], want["cls"]),
+              f"xl stream {pi}: job rows differ from the CPU run")
+        for k in ("t_arr", "t_admit", "t_done"):
+            check(np.allclose(got[k], want[k], rtol=RTOL, atol=0.0),
+                  f"xl stream {pi}: {k} differs from the CPU run")
+    # the idle share's window: the same stream through run_stream again, in
+    # the full trace's ring geometry, on its arrivals below
+    # PROFILE_STREAM_HORIZON: unprofiled, under the profiler, counting syncs
+    wspec = RingSpec.for_jobs([a.job for a in stream_arrivals(
+        rate=STREAM_RATE, seed=0).events(STREAM_HORIZON)],
+        slots=STREAM_SLOTS)
+
+    def window():
+        return stream(PROFILE_STREAM_HORIZON, wspec)
+    check(window().meta == res.meta, "xl stream: the window's ring differs")
+    torch.cuda.synchronize()
+    with StepCounter() as wsteps:
+        t0 = time.perf_counter()
+        window()
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    busy, ops = device_profile(window)
+    idle_share = None if busy is None else 1 - busy / 1e3 / window_s
+    syncs = count_syncs(window)
+    summaries = {res.policy_names[pi]: res.summary(pi)
+                 for pi in range(res.n_policies)}
+    report["xl_stream"] = {
+        "rate": STREAM_RATE, "horizon": STREAM_HORIZON, "stats": vars(st),
+        "stream_s": stream_s, "loop_steps": steps.n,
+        "steps_per_s": steps.n / stream_s,
+        "jobs_per_s": st.retired / stream_s, "peak_mib": peak / 2**20,
+        "apsp_launches": apsp_d, "cpu_run_s": cpu_s,
+        "ring_uploads": spread.uploads,
+        "diverged_uploads": spread.diverged,
+        "profile_window": {"horizon": PROFILE_STREAM_HORIZON,
+                           "steps": wsteps.n, "wall_s": window_s,
+                           "busy_ms": busy, "idle_share": idle_share,
+                           "host_syncs": syncs,
+                           "syncs_per_step": syncs / wsteps.n,
+                           "device_ops": ops,
+                           "ops_per_step": ops / wsteps.n},
+        "summary": summaries}
+    print(f"xl stream at {STREAM_RATE} jobs/s to {STREAM_HORIZON} s: trace "
+          f"{st.trace_len}, loads {st.loads}, refills {st.refills}, chunks "
+          f"{st.chunks}, {steps.n} loop steps in {stream_s:.3f} s = "
+          f"{steps.n / stream_s:.1f} steps/s, {st.retired / stream_s:.2f} "
+          f"jobs/s of wall; peak device memory {peak / 2**20:.1f} MiB; "
+          f"apsp_f32 launches {apsp_d}; {spread.diverged} of "
+          f"{spread.uploads} ring generations held different jobs in one "
+          f"cohort's lanes; window to {PROFILE_STREAM_HORIZON} s, "
+          f"{wsteps.n} events: "
+          f"{window_s * 1e3:.3f} ms, device busy {busy} ms, idle share "
+          f"{idle_share}, {syncs} host syncs ({syncs / wsteps.n:.2f} a "
+          f"step), {ops} device ops ({ops / wsteps.n:.1f} a step); ledger "
+          f"held; equal to its CPU run ({cpu_s:.1f} s in a worker)")
+    for name, sm in summaries.items():
+        print(f"  {name}: p50 sojourn {sm['p50_sojourn_s']} s, p99 "
+              f"{sm['p99_sojourn_s']} s, SLO attainment "
+              f"{ {c: v['attainment'] for c, v in sm['classes'].items()} }, "
+              f"energy {sm['energy_j']} J, {sm['jobs_done']} jobs after "
+              f"warmup")
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -819,6 +1211,8 @@ def main() -> int:
     CPU_POOL.append(multiprocessing.get_context("spawn").Pool(2))
     cpu_jobs = {kind: CPU_POOL[0].apply_async(cpu_reference, (kind,))
                 for kind in (*PHASE10_XL, *PHASE10_GRIDS)}
+    cpu_jobs.update({kind: CPU_POOL[0].apply_async(cpu_reference11, (kind,))
+                     for kind in PHASE11_CPU})
 
     kernels = (minplus_kernel, fa_kernel, scan_kernel)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1672,10 +2066,9 @@ def main() -> int:
             t0 = time.perf_counter()
             window_steps = int(window().steps.max())
             window_s = time.perf_counter() - t0
-            busy = device_ms(window)
+            busy, ops = device_profile(window)
             idle_share = None if busy is None else 1 - busy / 1e3 / window_s
             syncs = count_syncs(window)
-            ops = device_ops(window)
             cpu_states, cpu_s = cpu_jobs[xl].get()
             states_match(res.states, cpu_states,
                          f"{xl} against its CPU run")
@@ -1716,6 +2109,13 @@ def main() -> int:
         ctrl_report = {"small": small, "xl": xl_cells,
                        "phase_s": time.perf_counter() - t_phase10}
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("11 the fleet engine and the streaming ring on CUDA"):
+        t_phase11 = time.perf_counter()
+        fleet_report = phase11(kernels, cpu_jobs)
+        fleet_report["phase_s"] = time.perf_counter() - t_phase11
+
     t_fa = fa_times[LONG_PROMPT]
     print(json.dumps({"kernels": [{
         "name": "minplus_f32",
@@ -1746,6 +2146,9 @@ def main() -> int:
                  "scenarios_max_abs_err": apsp_err,
                  "ctrl_chaos_launches": {k: v["apsp_launches"]
                                          for k, v in xl_cells.items()},
+                 "fleet_stream_launches": {
+                     k: v["apsp_launches"] for k, v in fleet_report.items()
+                     if isinstance(v, dict)},
                  **xl_apsp},
         "fat_tree_32": {"entry": "apsp_f32", "squarings": ft_ran,
                         "squarings_needed": ft_need,
@@ -1815,6 +2218,7 @@ def main() -> int:
         "occupancy": scan_occ,
     }], "steps_per_s": rates, "device_idle_share": idle,
         "failures": failures_report, "ctrl_chaos": ctrl_report,
+        "fleet_stream": fleet_report,
         "serve": serve, "serve_ssm": serve_ssm}))
     print(card)
     print(json.dumps({"ok": True, "device": {

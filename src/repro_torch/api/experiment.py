@@ -12,9 +12,10 @@ lane of one engine loop) and a packed heterogeneous multi-topology grid
 (one loop per scenario, ``api.runners``), with the failure, gray-failure
 and control-plane axes crossing every scenario with every schedule or
 config, on ``device`` (``None`` = CUDA), and returns a ``Results`` grid
-``[S, P, ...]``.  Not ported yet, each raising ``NotImplementedError``
-with its ROADMAP item: ``run_fleet`` (queue 1 item 8) and ``run_stream``
-(item 9).
+``[S, P, ...]``.  ``run_fleet`` drains the same grid through the fleet's
+chunked cohorts (``api.fleet``, DESIGN.md §9) and ``run_stream`` streams an
+open arrival process through one scenario's slot-recycling ring
+(``api.stream``, DESIGN.md §11).
 """
 from __future__ import annotations
 
@@ -278,14 +279,33 @@ class Experiment:
                        scenario_names=self.scenario_names,
                        policy_names=self.policy_names)
 
-    def run_fleet(self, *args, **kw):
-        raise NotImplementedError(
-            "run_fleet is not ported yet (ROADMAP queue 1 item 8); run() "
-            "already runs the policies as lanes of one loop")
+    def run_fleet(self, width: int = 32, chunk_steps: int = 32,
+                  **kw) -> Results:
+        """Execute the grid through the fleet engine (DESIGN.md §9):
+        chunked early-exit cohorts grouped by static policy signature, on
+        one device.  Bit-identical to ``run()``.  Extra keywords pass
+        through to ``fleet.run_fleet``."""
+        from .fleet import run_fleet
+        return run_fleet(self, width=width, chunk_steps=chunk_steps, **kw)
 
-    def run_stream(self, *args, **kw):
-        raise NotImplementedError(
-            "run_stream is not ported yet (ROADMAP queue 1 item 9)")
+    def run_stream(self, arrivals, horizon: float, *, warmup: float = 0.0,
+                   window: Optional[float] = None, slots: int = 32,
+                   chunk_steps: int = 128, **kw):
+        """Stream an open arrival process through the experiment's (single)
+        scenario for every policy (DESIGN.md §11): the job/task/packet
+        tensors become a ``slots``-deep recycling ring refilled from
+        ``arrivals`` (``repro_torch.scenarios.arrivals``) at chunk
+        boundaries, so an unbounded trace runs in bounded memory.  Returns
+        a ``StreamResults`` with per-window p50/p99 sojourn, throughput,
+        utilization, energy, and per-class SLO attainment; completions
+        before ``warmup`` are excluded from ``summary()``.  A finite trace
+        that fits ``slots`` reproduces ``run()`` on the equivalent
+        ``streaming.ring_setup`` bit for bit.  Extra keywords pass through
+        to ``stream.run_stream``."""
+        from .stream import run_stream
+        return run_stream(self, arrivals, horizon, warmup=warmup,
+                          window=window, slots=slots,
+                          chunk_steps=chunk_steps, **kw)
 
 
 def _cross_failures(scenarios: List[Tuple[str, SimSetup]],

@@ -24,11 +24,32 @@ kind            consts                         policies
 "grid" runs one loop per scenario over ``slice_packed(consts, si)``
 under the packed ``SimMeta``, its policies as lanes, and stacks the
 final states into ``[S, P, ...]`` — bit-exact by construction, as the
-reference's fleet layer runs the same slices.  Its runner keeps the
-host-clock seconds of each scenario's loop in the last call as
-``seconds`` (a loop ends on a host copy of its finished flags, so its
-device work is done by then).  "zipped" runs one one-lane loop per
-replica.
+fleet runs the same slices.  Its runner keeps the host-clock seconds of
+each scenario's loop in the last call as ``seconds`` (a loop ends on a
+host copy of its finished flags, so its device work is done by then).
+"zipped" runs one one-lane loop per replica.
+
+The fleet (``api.fleet``) and the streaming ring (``api.stream``) keep
+their programs in the same cache, keyed as the reference keys them, so a
+second ``run_fleet`` or ``run_stream`` with an equal ``SimMeta`` adds no
+entry:
+
+=====================================  ===================================
+key                                    program
+=====================================  ===================================
+("fleet", meta, sig, K, W)             ``make_fleet_chunk``: K events of a
+                                       W-lane cohort of static signature
+                                       ``sig`` (routing, traffic,
+                                       placement)
+("fleet-init", meta, W)                ``init_fleet_carry``: the t=0 carry
+("fleet-refill", meta, W)              ``tree_select``: refilled lanes
+                                       back to the t=0 carry
+("stream", meta, sig, K, W)            the chunk over per-lane streamed
+                                       consts (``STREAM_FIELDS``)
+("stream-init", meta, W)               the ring's t=0 carry
+("stream-refill", meta, W)             ``streaming.make_refill``: the
+                                       masked slot reset
+=====================================  ===================================
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """The simulator core in PyTorch: port of ``src/repro/core``."""
 from .ctrlplane import CtrlPlaneConfig, no_ctrl
 from .energy import EnergyParams
-from .engine import (EngineConsts, SimState, init_state, make_consts,
-                     make_packed_simulator, make_simulator, simulate,
-                     simulate_batch, simulate_scenarios)
+from .engine import (EngineConsts, SimState, init_fleet_carry, init_state,
+                     make_consts, make_fleet_chunk, make_packed_simulator,
+                     make_simulator, simulate, simulate_batch,
+                     simulate_scenarios, tree_select)
 from .failures import (DegradationSchedule, FailureSchedule, host_crash,
                        host_slowdown, link_brownout, link_cut,
                        no_degradation, no_failures)
@@ -25,6 +26,7 @@ from .usecase import paper_cluster, paper_jobs, paper_setup
 __all__ = [
     "CtrlPlaneConfig", "no_ctrl", "EnergyParams", "EngineConsts", "SimState", "init_state", "make_consts",
     "make_packed_simulator", "make_simulator",
+    "init_fleet_carry", "make_fleet_chunk", "tree_select",
     "simulate", "simulate_batch", "simulate_scenarios",
     "DegradationSchedule", "FailureSchedule", "host_crash", "host_slowdown",
     "link_brownout", "link_cut", "no_degradation", "no_failures",

@@ -16,7 +16,11 @@ W policies on one scenario run as W lanes of one loop, the counterpart of
 the reference's vmapped policy batch; a serial run is W = 1.  A finished
 lane is frozen (its state no longer changes), as ``lax.cond`` under vmap
 does in the reference, and the loop ends when every lane has finished.
-``EngineConsts`` is shared by all lanes and has no lane axis.
+``EngineConsts`` is shared by all lanes, except that the streaming ring's
+job, task and packet leaves (``core.streaming.STREAM_FIELDS``) may carry a
+leading ``[W]`` axis, each lane's ring holding its own jobs (the
+reference's ``consts_axes``); every index read from those leaves goes
+through ``_take``.
 
 Exactness.  The state, step for step, equals the reference's:
 
@@ -56,9 +60,11 @@ Float sums over clone slots (``spec_wasted``, the clones' MIPS per host)
 run in float64 and round once: equal to the reference's float32 sum in
 any order while at most two terms are non-zero.
 
-Scope.  Left out of this module, with the ROADMAP item that brings them:
-``tree_select``, ``init_fleet_carry``, ``make_fleet_chunk`` — queue 1
-item 8.
+Loops.  ``_advance`` is the one loop body: the serial run
+(``make_packed_simulator``) drives it to the end, the fleet's chunk
+(``make_fleet_chunk``, DESIGN.md §9) for at most K events between the
+host's retire/refill boundaries; ``init_fleet_carry`` and ``tree_select``
+build and reset its carry.
 """
 from __future__ import annotations
 
@@ -382,11 +388,11 @@ def init_state_from_consts(c: EngineConsts, n_switches: int,
     tables' width (``ftab_*`` ``[W, n_switches, ctrl_slots]``),
     ``spec_slots`` the clone slots per job (``spec_*`` ``[W, n_jobs *
     spec_slots]``).  Pad job/task/packet slots start VOID/zero and stay
-    inert."""
-    n_j = c.job_release.shape[0]
+    inert.  A streamed leaf with a lane axis gives each lane its own."""
+    n_j = c.job_release.shape[-1]
     n_s = n_j * spec_slots
-    n_t = c.task_job.shape[0]
-    n_p = c.pkt_job.shape[0]
+    n_t = c.task_job.shape[-1]
+    n_p = c.pkt_job.shape[-1]
     n_v = c.vm_host.shape[0]
     n_h = c.host_total_mips.shape[0]
     dev = c.link_bw.device
@@ -395,7 +401,7 @@ def init_state_from_consts(c: EngineConsts, n_switches: int,
         return torch.full((width, *shape), value, dtype=dtype, device=dev)
 
     def lanes(a, dtype):
-        return a.to(dtype).expand(width, *a.shape).clone()
+        return a.to(dtype).expand(width, a.shape[-1]).clone()
 
     nan = float("nan")
     return SimState(
@@ -471,6 +477,19 @@ def init_state(setup: SimSetup, device=None) -> SimState:
 def _rows(w: int, device) -> torch.Tensor:
     """Lane index column ``[W, 1]`` for per-lane advanced indexing."""
     return torch.arange(w, device=device)[:, None]
+
+
+def _take(x, idx) -> torch.Tensor:
+    """``x`` at ``idx`` along its last axis, lane by lane: a shared ``[n]``
+    leaf at per-lane ``idx [W, ...]``, or a per-lane ``[W, n]`` tensor at
+    shared ``idx [k]`` (every lane alike) or per-lane ``idx [W, k]`` (a
+    gather along each lane's row).  Indices read from a streamed consts
+    leaf are per-lane when it carries the lane axis."""
+    if x.dim() == 1:
+        return x[idx]
+    if idx.dim() == 1:
+        return x[:, idx]
+    return torch.gather(x, 1, idx)
 
 
 def _vm_host(c: EngineConsts, meta, s: SimState) -> torch.Tensor:
@@ -645,7 +664,8 @@ def _admit_and_place(c: EngineConsts, meta, pol, ph, aux, s: SimState):
         # is the same before and after them); with no live VM they wait
         orphaned = (c.task_valid & (s.task_vm < 0)
                     & (s.task_state == WAITING)
-                    & s.job_admitted[:, job_of_task] & (n_live > 0)[:, None])
+                    & _take(s.job_admitted, job_of_task)
+                    & (n_live > 0)[:, None])
         any_admit, any_orphan = torch.stack(
             [placed.any(), orphaned.any()]).tolist()
         placed = placed | orphaned.any(1)
@@ -654,12 +674,12 @@ def _admit_and_place(c: EngineConsts, meta, pol, ph, aux, s: SimState):
 
     if any_admit:
         job_of_task = c.task_job.clamp(min=0).long()
-        mine = c.task_valid & admit_now[:, job_of_task]
+        mine = c.task_valid & _take(admit_now, job_of_task)
         # placement position: admission-rank-major, task-index-minor
         cnt_by_rank = torch.where(torch.gather(admit_now, 1, ord_j),
-                                  c.job_n_tasks[ord_j], 0)
+                                  _take(c.job_n_tasks, ord_j), 0)
         off_by_rank = cnt_by_rank.cumsum(1) - cnt_by_rank
-        pos = torch.gather(off_by_rank, 1, rank[:, job_of_task]) \
+        pos = torch.gather(off_by_rank, 1, _take(rank, job_of_task)) \
             + c.task_rank_in_job
         s = _place_batch(pol, ph, aux, s, mine, pos, vm_live, n_live)
     s = s._replace(job_admitted=s.job_admitted | admit_now,
@@ -686,7 +706,7 @@ def _pkt_endpoints(c: EngineConsts, meta, s: SimState):
 
     def node_of(task_idx):
         t = task_idx.clamp(0, n_tasks - 1).long()
-        vm = s.task_vm[:, t].clamp(min=0).long()
+        vm = _take(s.task_vm, t).clamp(min=0).long()
         node = torch.where(task_idx < 0, c.storage_node,
                            _host_of_vm(c, meta, s, vm))
         return torch.where(task_idx >= NODE_OFFSET, task_idx - NODE_OFFSET,
@@ -847,9 +867,9 @@ def _activate(c: EngineConsts, meta, pol, ph, aux, cache, nc, s: SimState):
         task_start=torch.where(t_ready, s.time[:, None], s.task_start))
 
     gate = c.pkt_gate_task
-    gate_ok = (gate < 0) | (s.task_state[:, gate.clamp(min=0).long()]
+    gate_ok = (gate < 0) | (_take(s.task_state, gate.clamp(min=0).long())
                             == DONE)
-    admitted = s.job_admitted[:, c.pkt_job.clamp(min=0).long()]
+    admitted = _take(s.job_admitted, c.pkt_job.clamp(min=0).long())
     p_ready = ((s.pkt_state == WAITING) & admitted & gate_ok & c.pkt_valid
                & cache["reachable"])
     if meta.has_failures:
@@ -857,8 +877,8 @@ def _activate(c: EngineConsts, meta, pol, ph, aux, cache, nc, s: SimState):
 
         def ep_placed(ref):
             is_task = (ref >= 0) & (ref < NODE_OFFSET)
-            return ~is_task | (s.task_vm[:, ref.clamp(0, n_t - 1).long()]
-                               >= 0)
+            return ~is_task | (_take(s.task_vm, ref.clamp(0, n_t - 1)
+                                     .long()) >= 0)
 
         p_ready = (p_ready & ep_placed(c.pkt_src_task)
                    & ep_placed(c.pkt_dst_task))
@@ -1081,9 +1101,9 @@ def _activate_ctrl(c: EngineConsts, meta, pol, ph, aux, cache, nc,
         task_start=torch.where(t_ready, s.time[:, None], s.task_start))
 
     gate = c.pkt_gate_task
-    gate_ok = (gate < 0) | (s.task_state[:, gate.clamp(min=0).long()]
+    gate_ok = (gate < 0) | (_take(s.task_state, gate.clamp(min=0).long())
                             == DONE)
-    admitted = s.job_admitted[:, c.pkt_job.clamp(min=0).long()]
+    admitted = _take(s.job_admitted, c.pkt_job.clamp(min=0).long())
     p_ready = ((s.pkt_state == WAITING) & admitted & gate_ok & c.pkt_valid
                & cache["reachable"])
     if meta.has_failures:
@@ -1091,8 +1111,8 @@ def _activate_ctrl(c: EngineConsts, meta, pol, ph, aux, cache, nc,
 
         def ep_placed(ref):
             is_task = (ref >= 0) & (ref < NODE_OFFSET)
-            return ~is_task | (s.task_vm[:, ref.clamp(0, n_t - 1).long()]
-                               >= 0)
+            return ~is_task | (_take(s.task_vm, ref.clamp(0, n_t - 1)
+                                     .long()) >= 0)
 
         p_ready = (p_ready & ep_placed(c.pkt_src_task)
                    & ep_placed(c.pkt_dst_task))
@@ -1199,7 +1219,7 @@ def _preinstall(c: EngineConsts, meta, pol, aux, cache, nc, s: SimState,
     fields, so the pins are written after the scan."""
     lane = ((pol["install_mode"] == INSTALL_PROACTIVE)
             & (pol["routing"] == ROUTE_SDN))[:, None]
-    mask = (c.pkt_valid & admit_now[:, c.pkt_job.clamp(min=0).long()]
+    mask = (c.pkt_valid & _take(admit_now, c.pkt_job.clamp(min=0).long())
             & (s.pkt_cand < 0) & cache["reachable"] & c.ctrl_on & lane)
     order, n = _pop_order(mask)
     k_max = int(n.max())
@@ -1258,7 +1278,7 @@ def _maybe_migrate(c: EngineConsts, meta, pol, s: SimState, nc):
 
     def ep_vm(ref):
         is_task = (ref >= 0) & (ref < NODE_OFFSET)
-        vm = s.task_vm[:, ref.clamp(0, n_t - 1).long()]
+        vm = _take(s.task_vm, ref.clamp(0, n_t - 1).long())
         return torch.where(is_task, vm, -1)                     # [W, P]
 
     src_vm, dst_vm = ep_vm(c.pkt_src_task), ep_vm(c.pkt_dst_task)
@@ -1403,7 +1423,8 @@ def _speculate(c: EngineConsts, meta, pol, s: SimState) -> SimState:
     rows = torch.arange(w, device=dev)
     slow = torch.where(straggler, rate, torch.inf).argmin(1)   # [W]
     siota = torch.arange(S, device=dev)
-    slot = torch.where(free & (siota // meta.spec_slots == job[slow][:, None]),
+    slot = torch.where(free & (siota // meta.spec_slots
+                               == _take(job, slow[:, None])),
                        siota, S).amin(1).clamp(max=S - 1)
     host_w = vm_host[rows, s.task_vm[rows, slow].clamp(min=0).long()]
     off_host = vm_live & (vm_host != host_w[:, None])
@@ -1417,7 +1438,8 @@ def _speculate(c: EngineConsts, meta, pol, s: SimState) -> SimState:
     return s._replace(
         spec_of=torch.where(oh, slow[:, None].to(I32), spec_of),
         spec_vm=torch.where(oh, pick[:, None].to(I32), s.spec_vm),
-        spec_rem=torch.where(oh, c.task_mi[slow][:, None], s.spec_rem),
+        spec_rem=torch.where(oh, _take(c.task_mi, slow[:, None]),
+                             s.spec_rem),
         spec_start=torch.where(oh, t, s.spec_start),
         task_cloned=s.task_cloned | ((torch.arange(n_t, device=dev)
                                       == slow[:, None]) & launch[:, None]),
@@ -1521,7 +1543,7 @@ def _make_aux(c: EngineConsts, meta, pol, ph) -> Dict[str, torch.Tensor]:
     ``spec_on`` (some lane speculates); with the control plane, the
     failover edges (primary down, election gap over, primary back) and
     each link's source switch (``-1`` for a host or storage node)."""
-    n_t = c.task_job.shape[0]
+    n_t = c.task_job.shape[-1]
     seed = pol["seed"][:, None]
     tidx = torch.arange(n_t, dtype=I32, device=seed.device)
     aux = {
@@ -1731,7 +1753,7 @@ def _step(c: EngineConsts, meta, pol, ph, aux, s: SimState, cache, nc,
         s_live = s.spec_of >= 0
         spec_rem = torch.where(s_live, fma32(-spec_rate, dt_col, s.spec_rem),
                                s.spec_rem)
-        clone_done = s_live & (spec_rem <= aux["task_tol"][s_orig])
+        clone_done = s_live & (spec_rem <= _take(aux["task_tol"], s_orig))
         win = clone_done & ~torch.gather(t_done, 1, s_orig)
         win_t = torch.zeros(t_done.shape, dtype=I32, device=dt.device
                             ).scatter_add(1, s_orig, win.to(I32)) > 0
@@ -1785,6 +1807,60 @@ def lane_policies(pol, device=None) -> Dict[str, torch.Tensor]:
             if v.dim() == 0 else v.to(device) for k, v in pol.items()}
 
 
+def _carry(consts: EngineConsts, meta, s: SimState):
+    """The loop carry ``(s, cache, nc, done)`` of a state with nothing
+    active: its endpoint cache, zero channel counts, its finished flags."""
+    nc = torch.zeros((s.time.shape[0], meta.n_links), dtype=I32,
+                     device=s.time.device)
+    return s, _endpoint_cache(consts, meta, s), nc, _finished(consts, meta, s)
+
+
+def _advance(consts: EngineConsts, meta, pol, ph, aux, carry,
+             max_events: int | None = None):
+    """The loop body of every run: ``carry = (s, cache, nc, done)`` advanced
+    an event at a time while some lane is not done, for at most
+    ``max_events`` events (``None``: to the end).
+
+    Each event steps every lane, the finished ones too (the reference's
+    fleet chunk steps its whole cohort): a finished lane's state is frozen,
+    while the stepped endpoint cache and channel counts are kept, and a
+    finished lane's steps leave its ready sets empty.  ``done`` is sticky:
+    a lane it marks (a pad lane of a fleet cohort, say) stays frozen even
+    where ``_finished`` does not hold.  The loop reads the finished flags
+    on the host before each event; with failures the dead masks' delta
+    rides in the same copy."""
+    s, cache, nc, done = carry
+    width = done.shape[0]
+    fail = None
+    n = 0
+    while max_events is None or n < max_events:
+        if meta.has_failures:
+            dead = _dead_masks(consts, s)
+            died = ((dead[0] & ~s.host_dead).any(1)
+                    | (dead[1] & ~s.link_dead).any(1)) & ~done
+            flags = torch.cat([done, died]).cpu()
+            done_h = flags[:width]
+            fail = (dead, bool(flags[width:].any()))
+        else:
+            done_h = done.cpu()
+        if bool(done_h.all()):
+            break
+        s_next, cache, nc = _step(consts, meta, pol, ph, aux, s, cache, nc,
+                                  fail)
+        if bool(done_h.any()):
+            # frozen lanes keep their final state (a leaf the step
+            # passed through is the same tensor)
+            s = SimState(*(b if a is b else torch.where(
+                done.reshape(-1, *([1] * (b.dim() - 1))), a, b)
+                for a, b in zip(s, s_next)))
+            done = done | _finished(consts, meta, s)
+        else:
+            s = s_next
+            done = _finished(consts, meta, s)
+        n += 1
+    return s, cache, nc, done
+
+
 def make_packed_simulator(meta: SimMeta):
     """Returns ``run(consts, pol, s0=None) -> SimState``.
 
@@ -1799,38 +1875,71 @@ def make_packed_simulator(meta: SimMeta):
         s = s0 if s0 is not None else init_state_from_consts(
             consts, meta.n_switches, meta.ctrl_slots, meta.spec_slots, width)
         aux = _make_aux(consts, meta, pol, ph)
-        cache = _endpoint_cache(consts, meta, s)
-        # nothing is active at t=0, so the carried channel counts start 0
-        nc = torch.zeros((width, meta.n_links), dtype=I32,
-                         device=consts.link_bw.device)
-        done = _finished(consts, meta, s)
-        fail = None
-        while True:
-            if meta.has_failures:
-                # the dead masks' delta rides in the finished flags' copy
-                dead = _dead_masks(consts, s)
-                died = ((dead[0] & ~s.host_dead).any(1)
-                        | (dead[1] & ~s.link_dead).any(1)) & ~done
-                flags = torch.cat([done, died]).cpu()
-                done_h = flags[:width]
-                fail = (dead, bool(flags[width:].any()))
-            else:
-                done_h = done.cpu()
-            if bool(done_h.all()):
-                return s
-            s_next, cache, nc = _step(consts, meta, pol, ph, aux, s, cache,
-                                      nc, fail)
-            if bool(done_h.any()):
-                # frozen lanes keep their final state (a leaf the step
-                # passed through is the same tensor)
-                s = SimState(*(b if a is b else torch.where(
-                    done.reshape(-1, *([1] * (b.dim() - 1))), a, b)
-                    for a, b in zip(s, s_next)))
-            else:
-                s = s_next
-            done = _finished(consts, meta, s)
+        return _advance(consts, meta, pol, ph, aux,
+                        _carry(consts, meta, s))[0]
 
     return run
+
+
+# --- fleet chunk stepper (DESIGN.md §9) ------------------------------------
+
+
+def tree_select(done, old, new):
+    """Per-lane select over a carry (tensors, dicts and tuples of them):
+    where ``done [W]`` holds, ``old``'s leaf, else ``new``'s.  The fleet
+    resets refilled lanes with it (``tree_select(refill, carry0, carry)``)."""
+    if isinstance(new, torch.Tensor):
+        return torch.where(done.reshape(-1, *([1] * (new.dim() - 1))),
+                           old, new)
+    if isinstance(new, dict):
+        return {k: tree_select(done, old[k], new[k]) for k in new}
+    leaves = (tree_select(done, a, b) for a, b in zip(old, new))
+    return type(new)(*leaves) if hasattr(new, "_fields") else tuple(leaves)
+
+
+def init_fleet_carry(consts: EngineConsts, meta, width: int):
+    """The t=0 carry of a ``width``-lane cohort: ``(SimState, endpoint
+    cache, channel counts, done)``, every leaf with a leading lane axis.
+    Lanes start identical; their policies differ."""
+    return _carry(consts, meta, init_state_from_consts(
+        consts, meta.n_switches, meta.ctrl_slots, meta.spec_slots, width))
+
+
+def make_fleet_chunk(meta, static_pol=None, chunk_steps: int = 32,
+                     lane_fields=()):
+    """The fleet's K-step cohort stepper (DESIGN.md §9): ``chunk(consts,
+    pol, carry) -> carry`` advances every live lane of ``carry``
+    (``init_fleet_carry``'s layout) by up to ``chunk_steps`` events and
+    returns early once every lane is done.
+
+    ``pol`` holds the lane-varying policy fields as host ``[W]`` int arrays;
+    ``static_pol`` the branch-selecting fields (routing, traffic,
+    placement) as ints shared by the cohort, so ``_step``'s host dispatch
+    issues one branch.  ``lane_fields`` names the consts leaves that carry
+    a leading ``[W]`` axis (the streaming ring's, ``core.streaming``), the
+    counterpart of the reference's ``consts_axes``.  The lanes' seed
+    hashes, tolerances and the control plane's switches are rebuilt from
+    the consts and policies of each call, so a lane refilled with a new
+    policy or new jobs between calls reads its own."""
+    static_pol = dict(static_pol or {})
+    lane_fields = tuple(lane_fields)
+
+    def chunk(consts: EngineConsts, pol, carry):
+        width = carry[3].shape[0]
+        for f in lane_fields:
+            if getattr(consts, f).shape[0] != width:
+                raise ValueError(f"consts.{f} has no [{width}] lane axis")
+        ph = {k: np.asarray(v, np.int32) for k, v in pol.items()}
+        ph.update({k: np.full(width, v, np.int32)
+                   for k, v in static_pol.items()})
+        names = list(ph)
+        rows = torch.from_numpy(np.stack([ph[k] for k in names])).to(
+            consts.link_bw.device)
+        pol_dev = dict(zip(names, rows))
+        aux = _make_aux(consts, meta, pol_dev, ph)
+        return _advance(consts, meta, pol_dev, ph, aux, carry, chunk_steps)
+
+    return chunk
 
 
 def make_simulator(setup: SimSetup, device=None):

@@ -1,7 +1,10 @@
 """Scenario library: port of ``src/repro/scenarios`` (workloads, the
 registry, the failure and gray-failure trace generators and the packed
-multi-topology sweep).  The arrival processes come with ROADMAP queue 1
-item 9."""
+multi-topology sweep) and the open arrival processes that feed the
+streaming ring."""
+from .arrivals import (Arrival, ArrivalProcess, DiurnalArrivals,
+                       PoissonArrivals, ServiceClass, TraceArrivals,
+                       as_workload)
 from .failures import (degradation_injector, failure_injector,
                        random_degradation, random_failures)
 from .registry import (Scenario, get_scenario, list_scenarios, make_cluster,
@@ -16,4 +19,6 @@ __all__ = ["Scenario", "get_scenario", "list_scenarios", "make_cluster",
            "JobTemplate", "bursty_workload", "uniform_workload",
            "zipf_workload",
            "degradation_injector", "failure_injector",
-           "random_degradation", "random_failures"]
+           "random_degradation", "random_failures",
+           "Arrival", "ArrivalProcess", "PoissonArrivals", "DiurnalArrivals",
+           "TraceArrivals", "ServiceClass", "as_workload"]

@@ -6,10 +6,9 @@ Port of ``src/repro/scenarios/registry.py``: ``Scenario``, ``make_cluster``,
 ``leaf-spine``, ``canonical-tree``, ``leaf-spine-xl``), the two failure
 entries (``paper-fabric-failures``, ``leaf-spine-failures``), the two
 control-plane entries (``paper-fabric-ctrl``, ``leaf-spine-ctrl``) and the
-two chaos entries (``paper-fabric-chaos``, ``leaf-spine-chaos``), each
-building the same ``SimSetup`` as the reference.  The streaming entry
-waits for its slice of the port; asking for it raises
-``NotImplementedError`` naming its ROADMAP item.
+two chaos entries (``paper-fabric-chaos``, ``leaf-spine-chaos``) and the
+streaming entry (``leaf-spine-stream``, with its ``stream_arrivals``
+process), each building the same ``SimSetup`` as the reference.
 """
 from __future__ import annotations
 
@@ -88,11 +87,6 @@ class Scenario:
 
 _REGISTRY: Dict[str, Callable[..., Scenario]] = {}
 
-# reference registry entries that need a feature this port does not run yet
-_LATER = {
-    "leaf-spine-stream": "queue 1 item 9",
-}
-
 
 def register(name: str):
     """Decorator: ``@register("leaf-spine")`` on a ``(**kw) -> Scenario``
@@ -108,9 +102,6 @@ def register(name: str):
 
 
 def get_scenario(name: str, **overrides) -> Scenario:
-    if name in _LATER:
-        raise NotImplementedError(
-            f"scenario {name!r} is not ported yet (ROADMAP {_LATER[name]})")
     if name not in _REGISTRY:
         raise KeyError(
             f"unknown scenario {name!r}; known: {sorted(_REGISTRY)}")
@@ -348,3 +339,48 @@ def _leaf_spine_chaos(n_spine: int = 4, n_leaf: int = 4,
             mttr=deg_mttr, horizon=horizon, seed=seed + 1),
         spec_slots=spec_slots,
     )
+
+
+@register("leaf-spine-stream")
+def _leaf_spine_stream(n_spine: int = 4, n_leaf: int = 4,
+                       hosts_per_leaf: int = 4, seed: int = 0,
+                       rate: float = 0.05, horizon: float = 240.0,
+                       urgent_share: float = 0.3, urgent_slo: float = 120.0,
+                       batch_slo: float = 600.0,
+                       max_jobs: Optional[int] = None) -> Scenario:
+    """Leaf-spine Clos under a two-class Poisson open-arrival mix — the
+    steady-state streaming scenario (DESIGN.md §11).  Registered with a
+    FINITE arrival preview (the trace below ``horizon``) so it runs under
+    ``Experiment.run`` like any scenario; ``Experiment.run_stream`` with
+    the same ``stream_arrivals(...)`` process streams it unbounded through
+    the slot-recycling ring.  The urgent class carries a priority weight
+    the ``job_selection=priority`` axis consumes, plus the tighter SLO the
+    windowed metrics grade."""
+    from .arrivals import as_workload
+    arrivals = stream_arrivals(rate=rate, seed=seed,
+                               urgent_share=urgent_share,
+                               urgent_slo=urgent_slo, batch_slo=batch_slo)
+    return Scenario(
+        name=f"leaf-spine-stream-{n_spine}x{n_leaf}",
+        topology=lambda: leaf_spine(n_spine, n_leaf, hosts_per_leaf),
+        workload=lambda: as_workload(arrivals, horizon, max_jobs=max_jobs),
+        description="leaf-spine Clos, two-class Poisson open arrivals "
+                    "(finite preview; stream via Experiment.run_stream)",
+    )
+
+
+def stream_arrivals(rate: float = 0.05, seed: int = 0,
+                    urgent_share: float = 0.3, urgent_slo: float = 120.0,
+                    batch_slo: float = 600.0):
+    """The ``leaf-spine-stream`` scenario's arrival process — importable so
+    ``run_stream`` users and the finite preview share one definition."""
+    from .arrivals import PoissonArrivals, ServiceClass
+    classes = (
+        ServiceClass("batch", weight=0.0, slo_s=batch_slo,
+                     share=1.0 - urgent_share),
+        ServiceClass("urgent", weight=2.0, slo_s=urgent_slo,
+                     share=urgent_share,
+                     template=JobTemplate(n_map=2, n_reduce=1),
+                     scale_lo=0.25, scale_hi=1.0),
+    )
+    return PoissonArrivals(rate=rate, classes=classes, seed=seed)

@@ -66,14 +66,19 @@ def test_job_report_equal_reference(both):
 
 
 def test_unported_axes_raise():
-    """Only ``run_fleet`` (queue 1 item 8), ``run_stream`` and the
-    streaming registry entry (item 9) still raise; every other axis
-    builds: several scenarios, the failure, degradation and ctrl crosses,
-    and the failure, ctrl and chaos registry entries."""
+    """Every axis of the front door runs now: several scenarios, the
+    failure, degradation and ctrl crosses, the failure, ctrl, chaos and
+    streaming registry entries, ``run_fleet`` and ``run_stream``, the last
+    three equal to the reference's.  Only the LM archs of
+    ``configs._NOT_PORTED`` still raise."""
+    from repro.scenarios import get_scenario as ref_get_scenario
+    from repro.scenarios.registry import stream_arrivals as ref_arrivals
+    from repro_torch.configs import _NOT_PORTED, get_config
     from repro_torch.core import CtrlPlaneConfig
     from repro_torch.core.failures import no_failures
     from repro_torch.scenarios import get_scenario
     from repro_torch.scenarios.failures import degradation_injector
+    from repro_torch.scenarios.registry import stream_arrivals
     two = Experiment(["paper-fabric", "leaf-spine"], device="cpu")
     assert two.scenario_names == ["paper-fabric", "leaf-spine-4x4"]
     topo = two.scenarios[0][1].cluster.topo
@@ -93,13 +98,68 @@ def test_unported_axes_raise():
                  "leaf-spine-ctrl", "paper-fabric-chaos",
                  "leaf-spine-chaos"):
         Experiment(name, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        get_scenario("leaf-spine-stream")
-    exp = Experiment("canonical-tree", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        exp.run_fleet()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        exp.run_stream(None, 1.0)
+    assert get_scenario("leaf-spine-stream").name \
+        == ref_get_scenario("leaf-spine-stream").name
+    pols = [_pair(PolicyConfig, r) for r in (1, 0)]
+    ref_pols = [_pair(RefPolicyConfig, r) for r in (1, 0)]
+    exp = Experiment("canonical-tree", pols, device="cpu")
+    ref = RefExperiment("canonical-tree", ref_pols)
+    fleet, rfleet = exp.run_fleet(width=1), ref.run_fleet(width=1)
+    for name, a, b in zip(fleet.states._fields, fleet.states, rfleet.states):
+        assert np.array_equal(a.numpy(), np.asarray(b), equal_nan=True), name
+    st = exp.run_stream(stream_arrivals(rate=0.05, seed=1), 200.0, slots=3)
+    rst = ref.run_stream(ref_arrivals(rate=0.05, seed=1), 200.0, slots=3)
+    assert st.stats.refills > 0
+    assert vars(st.stats) == vars(rst.stats)
+    for pi in range(2):
+        for k, v in rst.jobs[pi].items():
+            assert np.array_equal(st.jobs[pi][k], v), k
+    for arch in _NOT_PORTED:
+        with pytest.raises(NotImplementedError, match="item 11"):
+            get_config(arch)
+
+
+def test_fleet_no_rebuild_on_identical_meta():
+    """A second ``run_fleet`` of an equal ``SimMeta`` and width reuses the
+    cached chunk, init and refill programs: ``runners.cache_size()`` does
+    not grow, and the results are equal."""
+    from repro_torch.api import runners
+    runners.cache_clear()
+    pols = [PolicyConfig(seed=i) for i in range(3)]
+    r1 = Experiment("canonical-tree", pols, device="cpu").run_fleet(
+        width=2, chunk_steps=8)
+    n = runners.cache_size()
+    assert n >= 3
+    r2 = Experiment("canonical-tree", pols, device="cpu").run_fleet(
+        width=2, chunk_steps=8)
+    assert runners.cache_size() == n
+    for name, a, b in zip(r1.states._fields, r1.states, r2.states):
+        assert np.array_equal(a.numpy(), b.numpy(), equal_nan=True), name
+
+
+def test_stream_no_rebuild_on_identical_meta():
+    """A second ``run_stream`` of the same arrival trace through an
+    equal-meta ring reuses the cached chunk, init and refill programs."""
+    from repro_torch.api import runners
+    from repro_torch.scenarios import get_scenario
+    from repro_torch.scenarios.arrivals import PoissonArrivals
+    runners.cache_clear()
+    setup = get_scenario("leaf-spine", n_jobs=2).build("cpu")
+    arrivals = PoissonArrivals(rate=0.05, seed=0)
+
+    def one_run():
+        exp = Experiment(("leaf-spine", setup),
+                         PolicyConfig(job_concurrency=2), device="cpu")
+        return exp.run_stream(arrivals, horizon=120.0, slots=4,
+                              chunk_steps=64)
+
+    r1 = one_run()
+    n = runners.cache_size()
+    assert n >= 3
+    r2 = one_run()
+    assert runners.cache_size() == n
+    for k in r1.jobs[0]:
+        assert np.array_equal(r1.jobs[0][k], r2.jobs[0][k]), k
 
 
 def test_port_imports_no_jax_and_no_repro():

@@ -7,11 +7,8 @@ benchmarks/chaos_sweep.py's grid in small form, and the off switch: an
 identity ``CtrlPlaneConfig``, a unity-factor degradation schedule and no
 clone slots give the plain path's state bit for bit.
 ``tests/invariants.py``'s ``check_ctrl``, ``check_chaos`` and
-``check_finite`` run on every port state.
-
-Left out: ``test_chaos_composition_through_run_stream``, which streams
-the chaos stack through ``Experiment.run_stream`` (ROADMAP queue 1 item 9,
-not ported yet).
+``check_finite`` run on every port state, and ``check_stream`` on the
+chaos stack streamed through ``Experiment.run_stream``.
 
 Integer and bool leaves and ``steps`` must be equal; float leaves within
 rtol 1e-6 (NaN == NaN).  On the CPU they come out bitwise equal: the
@@ -441,3 +438,58 @@ def test_off_switch_is_the_plain_path(name):
                 or b.meta.spec_slots)
     for field, x, y in zip(a.states._fields, a.states, b.states):
         assert torch_equal(x, y), field
+
+
+def test_chaos_composition_through_run_stream():
+    """Outages × degradation × controller failover × speculation, streamed
+    through the slot-recycling ring: conservation holds, the run drains,
+    the chaos counters surface in ``StreamResults.summary``, and every job
+    row, sample, counter and final state equals the reference's."""
+    from repro.core import host_crash as ref_host_crash
+    from repro.scenarios.arrivals import ServiceClass as RefServiceClass
+    from repro.scenarios.arrivals import TraceArrivals as RefTraceArrivals
+    from repro_torch.core import host_crash
+    from repro_torch.scenarios.arrivals import ServiceClass, TraceArrivals
+    from invariants import check_stream
+    from test_torch_streaming import assert_stream_equal
+
+    def stream(pkg):
+        port = pkg == "port"
+        setup = (get_scenario("leaf-spine", n_jobs=2).build("cpu") if port
+                 else ref_get_scenario("leaf-spine", n_jobs=2).build())
+        n_h, n_l = dims(setup)
+        deg = (host_slowdown if port else ref_host_slowdown)(
+            n_h, n_l, host=0, at=0.0, factor=0.1)
+        fail = (host_crash if port else ref_host_crash)(
+            n_h, n_l, host=1, at=20.0, recover_at=60.0)
+        ctrl = (CtrlPlaneConfig if port else RefCtrlPlaneConfig)(
+            install_latency=0.02, ctrl_rate=1000.0, table_slots=8,
+            ctrl_fail_t=10.0, ctrl_recover_t=1e9, failover_delay=1.0,
+            backup_rate=200.0, backup_latency=0.1)
+        chaos_setup = dataclasses.replace(setup, degradation=deg,
+                                          failures=fail, ctrl=ctrl,
+                                          spec_slots=2)
+        arrivals = (TraceArrivals if port else RefTraceArrivals)(
+            times=tuple(4.0 * i for i in range(8)),
+            classes=((ServiceClass if port else RefServiceClass)(
+                "only", slo_s=500.0,
+                template=(JobTemplate if port else RefJobTemplate)(
+                    n_map=2, n_reduce=1)),))
+        pol = (PolicyConfig if port else RefPolicyConfig)(
+            routing=ROUTE_SDN, placement=PLACE_ROUND_ROBIN,
+            speculation=SPEC_ON, job_concurrency=2)
+        exp = (Experiment(("chaos-stream", chaos_setup), [("spec-on", pol)],
+                          device="cpu") if port else
+               RefExperiment(("chaos-stream", chaos_setup),
+                             [("spec-on", pol)]))
+        return exp.run_stream(arrivals, horizon=30.0, slots=4,
+                              chunk_steps=64, return_states=True)
+
+    res = stream("port")
+    assert res.stats.refills > 0         # the ring actually recycled
+    check_stream(res, label="chaos-stream")
+    summ = res.summary(0)
+    assert summ["failover_count"] >= 1
+    assert summ["degraded_time_s"] > 0.0
+    assert summ["spec_launches"] >= summ["spec_wins"] >= 0
+    assert_stream_equal(res, stream("ref"), "chaos-stream")

@@ -3,7 +3,8 @@ version at every tile (one product, and the one-launch APSP at every
 number of squarings, with the squarings it ran), ``apsp`` against the
 numpy hop distances, a refused over-sized grid, CUDA engine runs
 (healthy, with failures, the packed four-scenario grid, the control
-plane and the chaos stack) against the CPU runs, the flash-attention kernel against its plain version,
+plane and the chaos stack, a fleet with refills and a refilling stream)
+against the CPU runs, the flash-attention kernel against its plain version,
 a CUDA serving loop through the kernel against the same loop through the
 plain attention, and both selective-scan entry points against their plain
 versions with a Mamba serving loop through the kernel against the chunked
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 import dataclasses
+from unittest import mock
 
 from repro_torch.api import Experiment, PolicyConfig
 from repro_torch.configs import get_smoke_config
@@ -239,6 +241,63 @@ def test_failures_and_grid_on_cuda_equal_cpu(cuda, scenarios):
                                   equal_nan=True), name
         else:
             assert torch.equal(a, b), name
+
+
+def _close(gpu, cpu, label):
+    """Int/bool leaves equal, float leaves within rtol 1e-6."""
+    for field, a, b in zip(gpu._fields, gpu, cpu):
+        a, b = a.cpu(), b.cpu()
+        assert a.dtype == b.dtype and a.shape == b.shape, f"{label} {field}"
+        if a.dtype.is_floating_point:
+            assert torch.allclose(a, b, rtol=1e-6, atol=0.0,
+                                  equal_nan=True), f"{label} {field}"
+        else:
+            assert torch.equal(a, b), f"{label} {field}"
+
+
+def test_fleet_and_stream_on_cuda_equal_cpu(cuda):
+    """A small fleet that retires and refills lanes under outages, and a
+    stream that recycles its ring under a controller, on the card against
+    the same runs on the CPU: states within rtol 1e-6, the stream's job
+    ledger, its sequence and class columns exactly.  The stream's SDN
+    cohort is two lanes wide (admission widths 2 and 4), and its lanes'
+    rings are seen to hold different jobs in one generation."""
+    from repro_torch.api import stream
+    from repro_torch.core.streaming import STREAM_FIELDS
+    from repro_torch.scenarios.registry import stream_arrivals
+    pols = [PolicyConfig(routing=r, seed=sd, job_concurrency=2)
+            for r in (ROUTE_SDN, ROUTE_LEGACY) for sd in range(3)]
+    runs = {dev: Experiment("paper-fabric-failures", pols,
+                            device=dev).run_fleet(width=2, chunk_steps=8,
+                                                  return_stats=True)
+            for dev in (cuda, "cpu")}
+    (gpu, gst), (cpu, cst) = runs[cuda], runs["cpu"]
+    assert gpu.states.time.device.type == "cuda" and gst.refills > 0
+    assert vars(gst) == vars(cst)
+    _close(gpu.states, cpu.states, "fleet")
+    spols = [pols[0], pols[3],
+             PolicyConfig(routing=ROUTE_SDN, seed=1, job_concurrency=4)]
+    upload, diverged = stream._upload, []
+
+    def spy(consts0, host, dev):
+        diverged.append(any(bool((host[f][0] != host[f][-1]).any())
+                            for f in STREAM_FIELDS))
+        return upload(consts0, host, dev)
+    with mock.patch.object(stream, "_upload", spy):
+        streams = {dev: Experiment("paper-fabric-ctrl", spols,
+                                   device=dev).run_stream(
+            stream_arrivals(rate=0.1, seed=2), 150.0, slots=3,
+            chunk_steps=24, return_states=True) for dev in (cuda, "cpu")}
+    g, c = streams[cuda], streams["cpu"]
+    assert g.stats.refills > 0 and vars(g.stats) == vars(c.stats)
+    assert g.stats.cohorts == 2 and any(diverged)
+    for pi in range(3):
+        for k in ("seq", "cls"):
+            assert np.array_equal(g.jobs[pi][k], c.jobs[pi][k]), k
+        for k in ("t_arr", "t_admit", "t_done"):
+            np.testing.assert_allclose(g.jobs[pi][k], c.jobs[pi][k],
+                                       rtol=1e-6, atol=0.0)
+        _close(g.final_states[pi], c.final_states[pi], f"stream {pi}")
 
 
 @pytest.mark.parametrize("name,pols", [
