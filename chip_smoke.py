@@ -107,8 +107,9 @@ Phases, each printed with its wall time:
    speculation {off, on}, each at its registered size and equal to its
    CPU run, the flow tables' conservation law (``occupied == installs -
    evictions``, nothing left INSTALLING) on the CUDA states, and
-   ``paper-fabric-chaos``'s failover counters; (b) ``leaf-spine-xl`` at
-   its registered size with ``leaf-spine-ctrl``'s controller (0.02 s
+   ``paper-fabric-chaos``'s failover counters; (b) ``leaf-spine-xl``'s
+   fabric and Zipf mix cut to ``XL_CTRL_JOBS`` of its 128 jobs, with
+   ``leaf-spine-ctrl``'s controller (0.02 s
    install latency, 1000 rules/s, 8 slots, migration threshold 12, cost
    0.5 s, cooldown 5 s) under SDN reactive, SDN proactive, legacy and SDN
    with migration, as four lanes of one loop; (c) ``leaf-spine-xl`` under
@@ -151,7 +152,37 @@ Phases, each printed with its wall time:
    syncs and device ops a step over a window (the same stream through
    ``run_stream`` on its arrivals below ``PROFILE_STREAM_HORIZON``, ~250
    events), and peak device memory.
-   Its CPU runs join phase 10's worker pool at the start.
+   Its CPU runs join phase 10's worker pool at the start;
+12. the roofline advisor and the data twin on CUDA: ``advise_allreduce``
+   at 1e6 and 100e6 bytes a chip on a 4x4 and an 8x8 torus (64 chips, the
+   advisor's ``des_max_chips``), each ranking and DES time equal to the
+   CPU run's (rtol 1e-6) and within 1 % of ``analytic_time``, exactly one
+   ``apsp_f32`` launch for each schedule's ``flows_setup``, and each
+   schedule's loop steps and steps/s; then one ``pipeline_jobs`` ingest job
+   (``INGEST``) through the engine on ``leaf-spine-xl``'s fabric under SDN
+   and legacy, equal to its CPU run, with one ``apsp_f32`` launch: a check
+   of the data twin on the card, not a measured workload (its shape has no
+   published source).  Its CPU runs join the worker pool at the start;
+13. the MoE family at full width: qwen3-moe-30b-a3b's published config (48
+   layers, d_model 2048, 32 heads over 4 kv heads, 128 experts top-8 of
+   d_ff 768; 30.53 B parameters, random bf16 weights from a seeded
+   generator on the card) through ``repro_torch.launch.serve`` with phase
+   7's traffic and every kernel's launch count reset just before and read
+   just after: 16 answers of 17 tokens, 48 x 16 = 768 flash launches, no
+   min-plus or scan launch; tok/s, the tick through Python and as a CUDA
+   graph, the host syncs of a tick without an admission (exactly one, its
+   argmax copy); the 2048-token prefill through the kernel against the
+   plain attention within ``LOGIT_TOL``, with the share of (token,
+   choice) pairs whose expert differs at each layer, and
+   ``moe_depth_witness`` walking the prompt layer by layer; peak device
+   memory;
+14. the hybrid family at full width: jamba-v0.1-52b's published widths
+   with the depth cut to 2 of its 4 periods (16 layers: 14 Mamba, 2
+   attention, 8 MoE of 16 experts top-2; 26.05 B parameters) through the
+   launcher with the same traffic: 16 answers of 17 tokens, 2 x 16 = 32
+   flash and 14 x (16 prefills + 64 ticks) = 1120 fused-scan launches;
+   the same measurements as phase 13, the long prefill through both
+   kernels against the chunked attention and the chunked scan.
 
 Then one JSON line with every kernel's numbers and design, the card's
 name and power limit, and last the line ``{"ok": true, "device":
@@ -215,6 +246,9 @@ PHASE10_GRIDS = {"paper-fabric-ctrl": "ctrl", "leaf-spine-ctrl": "ctrl+mig",
                  "paper-fabric-chaos": "chaos",
                  "leaf-spine-chaos": "chaos"}
 PHASE10_XL = {"xl-ctrl": "ctrl+mig", "xl-chaos": "chaos"}
+# 10(b)'s jobs: at xl's 128 the SDN lane's loop ran 28970 steps (321 s, the
+# script's longest loop); 32 cut it to 7456 and pay for phases 12-14
+XL_CTRL_JOBS = 32
 
 # the worker processes of phase 10's and phase 11's CPU runs (stopped on
 # exit)
@@ -270,6 +304,34 @@ SCAN_TOL = dict(rtol=1e-4, atol=1e-5)
 # a rare one-ulp flip carries through 64 bf16 layers, as phase 7's does
 MAMBA_LOGIT_TOL = 0.05
 
+# phase 12: benchmarks/advisor_validation.py's sizes on a 4x4 torus and on
+# 8x8 (64 chips, the advisor's des_max_chips: a v5e-64 slice), each DES
+# time within 1 % of the analytic ring formulas (that script's limit)
+ADVISOR_MESHES = ((4, 4), (8, 8))
+ADVISOR_BYTES = (1e6, 100e6)
+ADVISOR_TOL = 0.01
+# the data twin, held against its CPU run only (no published ingest
+# workload gives its shape, so it is timed as no metric): one map task a
+# host of leaf-spine-xl's 128, each reading a 2 Gbit shard, shuffled to 32
+# reducers that assemble the batches
+INGEST = dict(n_shards=128, shard_gbits=2.0, n_reducers=32)
+PHASE12_CPU = ("advisor", "ingest")
+
+# phases 13 and 14: the MoE and hybrid families with phase 7's traffic; a
+# tick without an admission waits for the device once, for its argmax
+MOE_ARGV = ["--arch", "qwen3-moe-30b-a3b", "--requests", "16", "--slots",
+            "4", "--max-len", "256", "--max-new", "16"]
+MOE_PARAMS = 30_532_122_624
+# jamba-v0.1-52b at full width, depth cut to 2 of its 4 periods (16
+# layers: 14 Mamba, 2 attention, 8 MoE; 52.17 GB of weights): the whole
+# model takes 103.27 GB, and 3 periods (77.72 GB) leave no room for the
+# long prefill on an 80 GB card
+JAMBA_LAYERS = 16
+JAMBA_ARGV = ["--arch", "jamba-v0.1-52b", "--layers", str(JAMBA_LAYERS),
+              "--requests", "16", "--slots", "4", "--max-len", "256",
+              "--max-new", "16"]
+JAMBA_PARAMS = 26_053_595_136
+
 
 DESIGN = {
     "minplus": "one tile routine: BM x BN output tiles (16-128, the largest "
@@ -317,8 +379,13 @@ def check(cond, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+# each phase's wall time, by the phase's number
+PHASE_S: dict = {}
+
+
 def phase(name: str):
-    """Context manager printing a phase's wall time when it ends."""
+    """Context manager printing a phase's wall time when it ends (and
+    keeping it in ``PHASE_S``)."""
     class _P:
         def __enter__(self):
             self.t0 = time.perf_counter()
@@ -327,8 +394,9 @@ def phase(name: str):
 
         def __exit__(self, *exc):
             if exc[0] is None:
-                print(f"== {name}: ok in "
-                      f"{time.perf_counter() - self.t0:.3f} s", flush=True)
+                secs = time.perf_counter() - self.t0
+                PHASE_S[name.split()[0]] = secs
+                print(f"== {name}: ok in {secs:.3f} s", flush=True)
             return False
     return _P()
 
@@ -770,18 +838,19 @@ def phase10_policies(kind: str):
 
 
 def phase10_scenario(kind: str):
-    """Phase 10's scenario: a registry name, or leaf-spine-xl at its
-    registered size with leaf-spine-ctrl's own controller (``xl-ctrl``) or
-    leaf-spine-chaos's own gray host slowdowns and 2 clone slots a job
-    (``xl-chaos``)."""
+    """Phase 10's scenario: a registry name, or leaf-spine-xl with
+    leaf-spine-ctrl's own controller and ``XL_CTRL_JOBS`` jobs
+    (``xl-ctrl``) or at its registered size with leaf-spine-chaos's own
+    gray host slowdowns and 2 clone slots a job (``xl-chaos``)."""
     if kind in PHASE10_GRIDS:
         return kind
     from repro_torch.scenarios import get_scenario
     from repro_torch.scenarios.failures import random_degradation
-    xl = get_scenario("leaf-spine-xl")
     if kind == "xl-ctrl":
-        return dataclasses.replace(xl, ctrl=get_scenario(
-            "leaf-spine-ctrl").ctrl)
+        return dataclasses.replace(
+            get_scenario("leaf-spine-xl", n_jobs=XL_CTRL_JOBS),
+            ctrl=get_scenario("leaf-spine-ctrl").ctrl)
+    xl = get_scenario("leaf-spine-xl")
     return dataclasses.replace(xl, spec_slots=2, degradation=(
         lambda topo: random_degradation(topo, host_rate=2e-3,
                                         mean_factor=0.3, mttr=400.0,
@@ -1172,6 +1241,337 @@ def phase11(kernels, cpu_jobs) -> dict:
     return report
 
 
+
+def cpu_reference12(kind: str):
+    """Phase 12's run of ``kind`` on the CPU, in a worker process started
+    with the script: the advice of every mesh and size, or the ingest
+    job's final states, and the seconds."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    torch.set_num_threads(2)
+    from repro_torch.roofline import advise_allreduce
+    t0 = time.perf_counter()
+    if kind == "advisor":
+        out = {(mesh, nbytes): [(a.schedule, a.predicted_s, a.source)
+                                for a in advise_allreduce(nbytes, mesh,
+                                                          device="cpu")]
+               for mesh in ADVISOR_MESHES for nbytes in ADVISOR_BYTES}
+    else:
+        out = ingest_experiment("cpu").run().states
+    return out, time.perf_counter() - t0
+
+
+def ingest_experiment(device):
+    """Phase 12's data twin: ``pipeline_jobs(**INGEST)`` as the workload of
+    leaf-spine-xl's fabric and cluster, under SDN and legacy routing at
+    the profile policy's job concurrency."""
+    from repro_torch.api import Experiment, PolicyConfig
+    from repro_torch.core import ROUTE_LEGACY, ROUTE_SDN
+    from repro_torch.data import pipeline_jobs
+    from repro_torch.scenarios import get_scenario
+    xl = dataclasses.replace(get_scenario("leaf-spine-xl"),
+                             workload=lambda: pipeline_jobs(**INGEST))
+    return Experiment(xl, [("sdn", PolicyConfig(routing=ROUTE_SDN,
+                                                job_concurrency=4)),
+                           ("legacy", PolicyConfig(routing=ROUTE_LEGACY,
+                                                   job_concurrency=4))],
+                      device=device)
+
+
+def phase12(kernels, cpu_jobs) -> dict:
+    """Phase 12: the advisor and the data twin on CUDA; returns the
+    report."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.api import consts_cache_clear
+    from repro_torch.roofline import V5E, advise_allreduce, analytic_time
+    from repro_torch.roofline import advisor
+    minplus_kernel = kernels[0]
+    cpu_advice, cpu_s = cpu_jobs["advisor"].get()
+    loops, setups = [], []
+    real_setup, real_simulate = advisor.flows_setup, advisor.simulate
+
+    def setup(*args, **kw):
+        out, made = counted(minplus_kernel, lambda: real_setup(*args, **kw))
+        setups.append(made)
+        return out
+
+    def simulate(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = real_simulate(*args, **kw)
+        steps = int(state.steps)
+        loops.append((steps, time.perf_counter() - t0))
+        return state
+
+    report = {"advisor": {}, "advisor_cpu_s": cpu_s}
+    with mock.patch.object(advisor, "flows_setup", setup), \
+            mock.patch.object(advisor, "simulate", simulate):
+        for mesh in ADVISOR_MESHES:
+            n = mesh[0] * mesh[1]
+            for nbytes in ADVISOR_BYTES:
+                for kern in kernels:
+                    kern.reset_launch_count()
+                loops.clear()
+                setups.clear()
+                t0 = time.perf_counter()
+                got = advise_allreduce(nbytes, mesh, device="cuda")
+                wall = time.perf_counter() - t0
+                label = f"advise {mesh[0]}x{mesh[1]} {nbytes:g} B"
+                want = cpu_advice[(mesh, nbytes)]
+                check([(a.schedule, a.source) for a in got]
+                      == [(w[0], w[2]) for w in want],
+                      f"{label}: ranking {[a.schedule for a in got]} != the "
+                      f"CPU run's {[w[0] for w in want]}")
+                check(len(setups) == 3 and all(
+                    m == {"apsp_f32": 1} for m in setups),
+                    f"{label}: min-plus launches per flows_setup {setups}, "
+                    f"expected one apsp_f32 each")
+                check(kernels[1].launch_count() == 0
+                      and kernels[2].launch_count() == 0,
+                      f"{label}: launched flash or the scan")
+                rows = []
+                by_schedule = dict(zip(("ring", "ring-bidir", "torus2d"),
+                                       loops))
+                for a, w in zip(got, want):
+                    an = analytic_time(a.schedule, n, nbytes, V5E, mesh)
+                    err = abs(a.predicted_s - an) / an
+                    check(math.isclose(a.predicted_s, w[1], rel_tol=RTOL),
+                          f"{label} {a.schedule}: {a.predicted_s} s on CUDA,"
+                          f" {w[1]} s on the CPU")
+                    check(err <= ADVISOR_TOL, f"{label} {a.schedule}: DES "
+                          f"{a.predicted_s} s is {err:.4%} off analytic {an}")
+                    steps, secs = by_schedule[a.schedule]
+                    rows.append({"schedule": a.schedule,
+                                 "des_s": a.predicted_s, "analytic_s": an,
+                                 "err": err, "steps": steps,
+                                 "loop_s": secs, "steps_per_s": steps / secs})
+                report["advisor"][label] = {"rows": rows, "wall_s": wall}
+                print(f"{label}: ranking " + ", ".join(
+                    f"{r['schedule']} {r['des_s']:.9g} s (analytic "
+                    f"{r['analytic_s']:.9g}, {r['err']:.4%}; {r['steps']} "
+                    f"steps in {r['loop_s']:.3f} s = {r['steps_per_s']:.1f} "
+                    f"steps/s)" for r in rows) + f"; {wall:.3f} s in all, "
+                    f"equal to the CPU run; one apsp_f32 launch a setup")
+    print(f"the advisor's CPU runs: {cpu_s:.1f} s in a worker")
+
+    # the data twin: one ingest job through the engine on xl's fabric
+    consts_cache_clear()
+    for kern in kernels:
+        kern.reset_launch_count()
+    exp = ingest_experiment("cuda")
+    with StepCounter() as steps:
+        res = exp.run()
+    mp = minplus_kernel.launch_counts()
+    check(mp == {"minplus_f32": 0, "apsp_f32": 1},
+          f"ingest: min-plus launches {mp}, expected one apsp_f32")
+    check(not bool(res.states.stalled.any()), "ingest: a lane stalled")
+    want, _ = cpu_jobs["ingest"].get()
+    states_match(res.states, want, "ingest")
+    _, setup = exp.scenarios[0]
+    jobs = {"n_shards": INGEST["n_shards"],
+            "n_reducers": INGEST["n_reducers"],
+            "shard_gbits": INGEST["shard_gbits"],
+            "tasks": int(setup.task_valid.sum()),
+            "packets": int(setup.pkt_valid.sum())}
+    report["ingest"] = {**jobs, "loop_steps": steps.n, "apsp_launches": 1}
+    print(f"ingest check on leaf-spine-xl ({jobs['n_shards']} shards of "
+          f"{jobs['shard_gbits']} Gbit, {jobs['n_reducers']} reducers: "
+          f"{jobs['tasks']} tasks, {jobs['packets']} packets): {steps.n} "
+          f"loop steps, SDN and legacy equal to the CPU run; apsp_f32 "
+          f"launches 1")
+    return report
+
+
+def tick_syncs(loop) -> int:
+    """Host syncs of one serving tick that admits nothing: every slot is
+    filled first, then one tick is counted (``count_syncs``)."""
+    import numpy as np
+    from repro_torch.serve import Request
+    for r in range(len(loop.free)):
+        loop.submit(Request(rid=10_000 + r, max_new=4,
+                            prompt=np.arange(1, 9, dtype=np.int32)))
+    loop._admit()
+    check(not loop.free and not loop.queue, "tick_syncs: a slot is free")
+    return count_syncs(loop.tick)
+
+
+class RouteRecorder:
+    """The experts ``moe.route`` chose ([T, k]) and the pairs it kept
+    ([T, k] bool), in call order, while it is entered."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.experts, self.keep = [], []
+        self._moe, self._route = moe, moe.route
+
+        def recorded(*args, **kw):
+            out = self._route(*args, **kw)
+            self.experts.append(out[1])
+            self.keep.append(out[2].reshape(out[1].shape))
+            return out
+        moe.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+        return False
+
+
+def moe_depth_witness(loop, plain: str) -> dict:
+    """Where a MoE model's long-prefill logit spread comes from.  The
+    plain backend's residual stream walks the layers with the
+    LONG_PROMPT-token prompt; at each layer the mixer (attention, or a
+    Mamba block from a zero state) runs on that same input through the
+    kernel and through the plain version, and the feed-forward runs on
+    each result.  Per layer: the mixer's spread (the largest difference as
+    a share of the plain output's largest |value|), which must be within
+    the attention tolerance; for a MoE layer the share of (token, choice)
+    pairs whose expert differs, and the layer output's spread over all
+    tokens and over the tokens routed alike (the same experts, and the
+    same pairs kept: one pair that changes expert can move another
+    token's pair past its expert's capacity)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import layers, ssm, transformer
+    params, cfg, dev = loop.params, loop.api.cfg, loop.device
+    prompt = np.random.RandomState(0).randint(1, cfg.vocab, LONG_PROMPT)
+
+    def mixer(layer, h, backend):
+        if hasattr(layer, "attn"):
+            q, k, v = layers.qkv_project(layer.attn, h, cfg)
+            q, k = transformer._rope(cfg, q, k, 0)
+            return layers.out_project(layer.attn, attn_mod.attention(
+                q, k, v, causal=True, backend=backend))
+        h0 = torch.zeros((1, cfg.d_inner, cfg.ssm_state),
+                         dtype=torch.float32, device=dev)
+        return ssm.mamba_mix(layer.mamba, h, cfg, h0, backend=backend)[0]
+
+    def spread(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max()) if a.numel() else 0.0
+
+    rows = []
+    with torch.no_grad(), RouteRecorder() as rec:
+        x = layers.embed(params.embed, torch.from_numpy(prompt[None]).to(dev))
+        for i, layer in enumerate(params.layers):
+            h = layers.rmsnorm(layer.ln1, x)
+            y = {b: mixer(layer, h, b) for b in ("kernel", plain)}
+            row = {"layer": i,
+                   "mixer": "attn" if hasattr(layer, "attn") else "mamba",
+                   "mixer_spread": spread(y["kernel"], y[plain])}
+            check(row["mixer_spread"] <= FA_TOL["bfloat16"],
+                  f"depth witness: layer {i}'s {row['mixer']} through the "
+                  f"kernel is {row['mixer_spread']} off the plain version "
+                  f"on the same input")
+            rec.experts.clear()
+            rec.keep.clear()
+            out = {}
+            for b in ("kernel", plain):
+                mid = x + y[b]
+                out[b] = mid + transformer.ffn(
+                    layer, layers.rmsnorm(layer.ln2, mid), cfg)[0]
+            row["out_spread"] = spread(out["kernel"], out[plain])
+            if rec.experts:
+                ek, ep = rec.experts
+                same = (ek == ep).all(-1) & (rec.keep[0]
+                                             == rec.keep[1]).all(-1)
+                row["flip_share"] = float((ek != ep).float().mean())
+                row["routed_alike"] = float(same.float().mean())
+                row["out_spread_same_experts"] = spread(
+                    out["kernel"][0, same], out[plain][0, same])
+            rows.append(row)
+            x = out[plain]
+    moe_rows = [r for r in rows if "flip_share" in r]
+    out = {"layers": rows,
+           "max_mixer_spread": max(r["mixer_spread"] for r in rows),
+           "max_flip_share": max(r["flip_share"] for r in moe_rows),
+           "max_out_spread": max(r["out_spread"] for r in rows),
+           "max_out_spread_same_experts": max(
+               r["out_spread_same_experts"] for r in moe_rows)}
+    print(f"depth witness ({LONG_PROMPT} tokens, {len(rows)} layers, each "
+          f"on the {plain} stream's input): mixer spread at most "
+          f"{out['max_mixer_spread']}; experts differ on at most "
+          f"{out['max_flip_share']} of a layer's (token, choice) pairs; "
+          f"layer output spread at most {out['max_out_spread']} over all "
+          f"tokens, {out['max_out_spread_same_experts']} over the tokens "
+          f"routed alike; by layer (mixer spread; flips, share of tokens "
+          f"routed alike, output spread all/alike): " + "; ".join(
+              f"{r['layer']} {r['mixer']} {r['mixer_spread']:.3g}"
+              + (f" {r['flip_share']:.3g} {r['routed_alike']:.3g} "
+                 f"{r['out_spread']:.3g}/{r['out_spread_same_experts']:.3g}"
+                 if "flip_share" in r else "") for r in rows))
+    return out
+
+
+def moe_serve(serve_launch, kernels, argv, label, want_params, want,
+              plain) -> dict:
+    """Phases 13 and 14: a MoE model at full width through the launcher
+    with every kernel's launch count reset just before and read just after
+    (``want``: the flash and fused-scan launches the path must make); its
+    tick through Python and as a graph; the host syncs of a tick without
+    an admission (exactly one); the depth witness, then the long prefill
+    through the kernels against the ``plain`` backend, with the share of
+    (token, choice) pairs whose expert differs at each MoE layer; peak
+    device memory."""
+    import torch
+    minplus_kernel, fa_kernel, scan_kernel = kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    served, main_s, serve_peak = serve_run(serve_launch, argv, kernels, label)
+    made = {"flash": fa_kernel.launch_count(),
+            "scan_fused": scan_kernel.launch_counts()[
+                "selective_scan_fused_f32"],
+            "scan_pallas": scan_kernel.launch_counts()["selective_scan_f32"],
+            "minplus": minplus_kernel.launch_count()}
+    check(made == {"flash": want["flash"], "scan_fused": want["scan"],
+                   "scan_pallas": 0, "minplus": 0},
+          f"{label}: launches {made}, expected {want} (and no min-plus)")
+    loop = served.loop
+    cfg = loop.api.cfg
+    n_params = sum(p.numel() for p in loop.params.parameters())
+    check(n_params == want_params,
+          f"{label}: {n_params} parameters, expected {want_params}")
+    report = {"arch": cfg.name, "n_layers": cfg.n_layers,
+              "params": n_params, "launches": made,
+              "tok_s": served.tokens / served.seconds,
+              "seconds": served.seconds, "tokens": served.tokens,
+              "launcher_s": main_s, "peak_gib": serve_peak / 2**30}
+    print(f"{cfg.name} ({cfg.n_layers} layers, {n_params} parameters, "
+          f"{cfg.dtype}): {main_s:.3f} s from the launcher's start to the "
+          f"last token ({served.seconds:.3f} s serving), "
+          f"{report['tok_s']:.1f} tok/s, launches {made}, peak device "
+          f"memory {serve_peak / 2**30:.3f} GiB")
+    report.update(time_tick(loop))
+    report["tick_syncs"] = tick_syncs(loop)
+    print(f"host syncs of a tick without an admission: "
+          f"{report['tick_syncs']}")
+    check(report["tick_syncs"] == 1, f"{label}: a tick without an admission"
+          f" waited for the device {report['tick_syncs']} times, not once")
+    report["depth_witness"] = moe_depth_witness(loop, plain)
+    with RouteRecorder() as rec:
+        report.update(long_prefill(loop, plain, LOGIT_TOL))
+    runs = len(rec.experts) // 4     # MoE layers; kernel, plain, kernel, plain
+    first = [rec.experts[i * runs:(i + 1) * runs] for i in range(4)]
+    report["flip_share_by_layer"] = [
+        float((a != b).float().mean()) for a, b in zip(first[0], first[1])]
+    report["kernel_routing_repeats"] = all(
+        torch.equal(a, b) for a, b in zip(first[0], first[2]))
+    print(f"long prefill: share of (token, choice) pairs whose expert "
+          f"differs, kernel against {plain}, by MoE layer: "
+          f"{[round(f, 6) for f in report['flip_share_by_layer']]}; the two "
+          f"kernel runs routed alike: {report['kernel_routing_repeats']}")
+    report["phase_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"peak device memory over the phase: "
+          f"{report['phase_peak_gib']:.3f} GiB")
+    del loop, served
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1213,6 +1613,8 @@ def main() -> int:
                 for kind in (*PHASE10_XL, *PHASE10_GRIDS)}
     cpu_jobs.update({kind: CPU_POOL[0].apply_async(cpu_reference11, (kind,))
                      for kind in PHASE11_CPU})
+    cpu_jobs.update({kind: CPU_POOL[0].apply_async(cpu_reference12, (kind,))
+                     for kind in PHASE12_CPU})
 
     kernels = (minplus_kernel, fa_kernel, scan_kernel)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2026,7 +2428,7 @@ def main() -> int:
         check(small["leaf-spine-ctrl"]["sdn-migrate"]["vm_migrations"] > 0,
               "leaf-spine-ctrl migrated no VM")
 
-        # (b), (c): leaf-spine-xl at its registered size under a priced
+        # (b), (c): leaf-spine-xl (32 jobs in (b)) under a priced
         # controller, and under gray host slowdowns with speculation
         xl_cells = {}
         for xl in PHASE10_XL:
@@ -2116,6 +2518,27 @@ def main() -> int:
         fleet_report = phase11(kernels, cpu_jobs)
         fleet_report["phase_s"] = time.perf_counter() - t_phase11
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("12 the advisor and the data twin on CUDA"):
+        advisor_report = phase12(kernels, cpu_jobs)
+
+    with phase("13 MoE serving at full width on CUDA (qwen3-moe-30b-a3b)"):
+        # flash: 48 layers x 16 prefills
+        serve_moe = moe_serve(serve_launch, kernels, MOE_ARGV, "moe serve",
+                              MOE_PARAMS, {"flash": 48 * 16, "scan": 0},
+                              "naive")
+
+    with phase("14 hybrid serving at full width on CUDA (jamba-v0.1-52b, "
+               f"{JAMBA_LAYERS} of 32 layers)"):
+        # flash: 2 attention layers x 16 prefills; the fused scan: 14
+        # Mamba layers x (16 prefills + 64 ticks)
+        serve_hybrid = moe_serve(
+            serve_launch, kernels, JAMBA_ARGV, "jamba serve", JAMBA_PARAMS,
+            {"flash": 2 * 16, "scan": 14 * (16 + MAMBA_TICKS)}, "chunked")
+    print(f"sum of phases: {sum(PHASE_S.values()):.3f} s "
+          f"({', '.join(f'{k} {v:.1f}' for k, v in PHASE_S.items())})")
+
     t_fa = fa_times[LONG_PROMPT]
     print(json.dumps({"kernels": [{
         "name": "minplus_f32",
@@ -2166,6 +2589,11 @@ def main() -> int:
                   "kv": [1, LONG_PROMPT, 8, 128], "dtype": "bfloat16",
                   "causal": True},
         "launches": fa_launches,
+        "launches_by_path": {"qwen3-4b": fa_launches,
+                             "qwen3-moe-30b-a3b":
+                                 serve_moe["launches"]["flash"],
+                             "jamba-v0.1-52b":
+                                 serve_hybrid["launches"]["flash"]},
         "max_abs_err": fa_err[LONG_PROMPT],
         "ms": t_fa["kernel_ms"],
         "plain_ms": t_fa["plain_ms"],
@@ -2191,6 +2619,9 @@ def main() -> int:
         "shape": {"dt_x": [1, LONG_PROMPT, 8192], "n": 16,
                   "entry": "selective_scan_fused_f32"},
         "launches": sum(mamba_launches.values()),
+        "launches_by_path": {"falcon-mamba-7b": sum(mamba_launches.values()),
+                             "jamba-v0.1-52b":
+                                 serve_hybrid["launches"]["scan_fused"]},
         "max_abs_err": scan_err["long_prefill"],
         "ms": scan_times["long_prefill"]["ms"],
         "plain_ms": scan_times["long_prefill"]["plain_ms"],
@@ -2218,8 +2649,9 @@ def main() -> int:
         "occupancy": scan_occ,
     }], "steps_per_s": rates, "device_idle_share": idle,
         "failures": failures_report, "ctrl_chaos": ctrl_report,
-        "fleet_stream": fleet_report,
-        "serve": serve, "serve_ssm": serve_ssm}))
+        "fleet_stream": fleet_report, "advisor": advisor_report,
+        "serve": serve, "serve_ssm": serve_ssm, "serve_moe": serve_moe,
+        "serve_hybrid": serve_hybrid, "phase_s": PHASE_S}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

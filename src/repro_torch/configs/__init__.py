@@ -3,9 +3,10 @@
 
 Each ported module defines ``CONFIG`` (the exact published dims) and
 ``smoke_config()`` (a reduced same-family config for CPU tests), with the
-reference's field values.  The dense archs and falcon-mamba-7b (the ssm
-family) are ported; the others raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+reference's field values.  The dense archs, falcon-mamba-7b (the ssm
+family), the two MoE archs and jamba-v0.1-52b (the hybrid family) are
+ported; the others raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 """
 from __future__ import annotations
 
@@ -20,14 +21,11 @@ ARCH_IDS: Tuple[str, ...] = (
     "qwen2-vl-72b", "whisper-base", "jamba-v0.1-52b",
 )
 # the archs the port runs (and ``launch/serve.py --arch`` accepts)
-PORTED_ARCH_IDS: Tuple[str, ...] = ARCH_IDS[:4] + ("falcon-mamba-7b",)
+PORTED_ARCH_IDS: Tuple[str, ...] = ARCH_IDS[:7] + ("jamba-v0.1-52b",)
 
 _NOT_PORTED = {
-    "moonshot-v1-16b-a3b": "ROADMAP queue 1 item 11, moe",
-    "qwen3-moe-30b-a3b": "ROADMAP queue 1 item 11, moe",
     "qwen2-vl-72b": "ROADMAP queue 1 item 11, vlm/M-RoPE",
     "whisper-base": "ROADMAP queue 1 item 11, encdec",
-    "jamba-v0.1-52b": "ROADMAP queue 1 item 11, hybrid",
 }
 
 

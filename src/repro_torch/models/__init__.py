@@ -1,4 +1,5 @@
-"""The LM stack of the port (dense family): port of ``src/repro/models``."""
+"""The LM stack of the port (dense, moe, ssm and hybrid families): port
+of ``src/repro/models``."""
 from .layers import ModelConfig
 from .registry import ModelApi, get_model
 

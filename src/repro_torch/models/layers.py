@@ -1,5 +1,6 @@
-"""Shared neural layers of the dense LM: port of ``src/repro/models/layers.py``
-(the dense subset; M-RoPE is not ported yet, ROADMAP queue 1 item 11).
+"""Shared neural layers of the LM families: port of
+``src/repro/models/layers.py`` (M-RoPE is not ported yet, ROADMAP queue 1
+item 11).
 
 Parameters live in ``nn.Module``s whose attribute names follow the JAX
 param tree's keys, so ``models/weights.py::params_from_jax`` maps one onto
@@ -23,8 +24,8 @@ from torch import nn
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The dense and SSM families' fields of the reference's config, with
-    its defaults.  The other families' fields (MoE, hybrid, enc-dec,
+    """The dense, MoE, SSM and hybrid families' fields of the reference's
+    config, with its defaults.  The other families' fields (enc-dec,
     M-RoPE, frontends, FSDP) come with the slices that read them."""
 
     name: str = "model"
@@ -39,15 +40,31 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 1e6
     tie_embeddings: bool = False
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    moe_every: int = 1             # MoE MLP every k-th layer (1 = all layers)
+    capacity_factor: float = 1.25
     # SSM (Mamba1)
     ssm_state: int = 16
     ssm_conv: int = 4
     ssm_expand: int = 2
+    # hybrid (Jamba): attention layer every `attn_every` layers
+    attn_every: int = 0            # 0 = not hybrid
     dtype: torch.dtype = torch.bfloat16
 
     @property
     def d_inner(self) -> int:      # mamba inner width
         return self.ssm_expand * self.d_model
+
+    @property
+    def is_moe_arch(self) -> bool:
+        return self.n_experts > 0
+
+    def moe_layer(self, layer_idx: int) -> bool:
+        return self.is_moe_arch and (layer_idx % self.moe_every
+                                     == self.moe_every - 1)
 
 
 def _param(shape, dtype, device) -> nn.Parameter:

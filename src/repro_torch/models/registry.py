@@ -1,5 +1,6 @@
 """Model registry: family -> (init, apply, cache, prefill, decode) API.
-Port of ``src/repro/models/registry.py`` for the dense and ssm families.
+Port of ``src/repro/models/registry.py`` for the dense, moe, ssm and hybrid
+families.
 
 ``get_model(cfg)`` returns a ``ModelApi`` whose members close over the
 config.  ``init(seed, device=)`` draws the weights from a ``torch.Generator``
@@ -15,13 +16,11 @@ from typing import Any, Callable
 import torch
 
 from ..device import resolve
-from . import mamba_lm, transformer
+from . import hybrid, mamba_lm, transformer
 from .layers import ModelConfig
 
 # family -> the ROADMAP item that ports it
 _NOT_PORTED = {
-    "moe": "ROADMAP queue 1 item 11, moe",
-    "hybrid": "ROADMAP queue 1 item 11, hybrid",
     "audio": "ROADMAP queue 1 item 11, encdec",
     "vlm": "ROADMAP queue 1 item 11, vlm/M-RoPE",
 }
@@ -37,14 +36,19 @@ class ModelApi:
     decode_step: Callable[..., Any]
 
 
+_TRANSFORMER = (transformer.lm_init, transformer.lm_apply,
+                transformer.lm_init_cache, transformer.lm_prefill,
+                transformer.lm_decode_step)
 # family -> (init, apply, init_cache, prefill, decode_step)
 _FAMILIES = {
-    "dense": (transformer.lm_init, transformer.lm_apply,
-              transformer.lm_init_cache, transformer.lm_prefill,
-              transformer.lm_decode_step),
+    "dense": _TRANSFORMER,
+    "moe": _TRANSFORMER,
     "ssm": (mamba_lm.ssm_lm_init, mamba_lm.ssm_lm_apply,
             mamba_lm.ssm_lm_init_cache, mamba_lm.ssm_lm_prefill,
             mamba_lm.ssm_lm_decode_step),
+    "hybrid": (hybrid.hybrid_init, hybrid.hybrid_apply,
+               hybrid.hybrid_init_cache, hybrid.hybrid_prefill,
+               hybrid.hybrid_decode_step),
 }
 
 
@@ -54,6 +58,9 @@ def get_model(cfg: ModelConfig) -> ModelApi:
                                   f"({_NOT_PORTED[cfg.family]})")
     if cfg.family not in _FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
+    if cfg.family == "moe" and not cfg.is_moe_arch:
+        raise ValueError(f"{cfg.name}: the moe family needs experts "
+                         f"(n_experts {cfg.n_experts})")
     f_init, f_apply, f_cache, f_prefill, f_decode = _FAMILIES[cfg.family]
     return ModelApi(
         cfg=cfg,

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense family: port of
+"""Decoder-only transformer LM, dense and MoE families: port of
 ``src/repro/models/transformer.py``.
 
 Three entry points, as in the reference's serving split:
@@ -12,12 +12,14 @@ the port keeps one ``Layer`` module per layer in an ``nn.ModuleList`` and
 loops over them.  The KV cache keeps the reference's layout,
 ``{"k", "v": [L, B, Smax, KV, Dh], "len": [B] int32}``, but prefill and
 decode write it in place and return it (the reference returns new arrays):
-a serving loop owns its cache.  MoE layers (``moe``/``moe_every``) are not
-ported yet.
+a serving loop owns its cache.  A layer holds ``moe`` (``models/moe.py``)
+in place of ``mlp`` where the reference's ``layer_init`` puts one: every
+layer of a ``moe``-family config, and every layer of any config with
+experts and ``moe_every == 1``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -27,6 +29,7 @@ from . import attention as attn_mod
 from .layers import (MLP, Attention, Embed, ModelConfig, RMSNorm, Unembed,
                      apply_rope, embed, fill_normal, mlp, out_project,
                      qkv_project, rmsnorm, unembed)
+from .moe import MoE, fill_moe, moe_apply
 
 Cache = Dict[str, torch.Tensor]
 
@@ -37,17 +40,18 @@ class Layer(nn.Module):
         self.ln1 = RMSNorm(cfg.d_model, cfg.dtype, device)
         self.attn = Attention(cfg, device)
         self.ln2 = RMSNorm(cfg.d_model, cfg.dtype, device)
-        self.mlp = MLP(cfg, device)
+        if cfg.family == "moe" or (cfg.is_moe_arch and cfg.moe_every == 1):
+            self.moe = MoE(cfg, device)
+        else:
+            self.mlp = MLP(cfg, device)
 
 
 class DenseLM(nn.Module):
-    """Parameters of the dense LM, named as the reference's param tree."""
+    """Parameters of the dense or MoE LM, named as the reference's param
+    tree."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        if cfg.family == "moe":
-            raise NotImplementedError("MoE layers are not ported yet "
-                                      "(ROADMAP queue 1 item 11, moe)")
         self.cfg = cfg
         self.embed = Embed(cfg, device)
         self.layers = nn.ModuleList(Layer(cfg, device)
@@ -64,23 +68,17 @@ class DenseLM(nn.Module):
 @torch.no_grad()
 def lm_init(gen: torch.Generator, cfg: ModelConfig) -> DenseLM:
     """Random weights with the reference's distributions (dense weights
-    N(0, 1/d_in), embedding and unembedding N(0, 0.02^2), norm scales 1),
-    drawn on the generator's device.  The numbers differ from
-    ``jax.random``'s; the parity tests carry the reference's weights across
-    with ``params_from_jax``."""
+    N(0, 1/d_in), experts as ``moe.fill_moe``, embedding and unembedding
+    N(0, 0.02^2), norm scales 1), drawn on the generator's device.  The
+    numbers differ from ``jax.random``'s; the parity tests carry the
+    reference's weights across with ``params_from_jax``."""
     dev = gen.device
     model = DenseLM(cfg, dev)
     for layer in model.layers:
         for norm in (layer.ln1, layer.ln2):
             norm.scale.fill_(1)
-        a = layer.attn
-        for w in (a.wq, a.wk, a.wv, a.wo):
-            fill_normal(w, gen)
-        if cfg.qk_norm:
-            a.q_norm.scale.fill_(1)
-            a.k_norm.scale.fill_(1)
-        for w in (layer.mlp.wi, layer.mlp.wg, layer.mlp.wo):
-            fill_normal(w, gen)
+        fill_attention(layer.attn, gen, cfg)
+        fill_ffn(layer, gen)
     fill_normal(model.embed.tok, gen, 0.02)
     model.final_norm.scale.fill_(1)
     if not cfg.tie_embeddings:
@@ -88,9 +86,38 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig) -> DenseLM:
     return model
 
 
+def fill_attention(a: Attention, gen: torch.Generator,
+                   cfg: ModelConfig) -> None:
+    """Projections N(0, 1/d_in), the q/k norm scales 1."""
+    for w in (a.wq, a.wk, a.wv, a.wo):
+        fill_normal(w, gen)
+    if cfg.qk_norm:
+        a.q_norm.scale.fill_(1)
+        a.k_norm.scale.fill_(1)
+
+
+def fill_ffn(layer: nn.Module, gen: torch.Generator) -> None:
+    """A layer's ``moe`` or ``mlp`` with the reference's distributions."""
+    if hasattr(layer, "moe"):
+        fill_moe(layer.moe, gen)
+    else:
+        for w in (layer.mlp.wi, layer.mlp.wg, layer.mlp.wo):
+            fill_normal(w, gen)
+
+
 # ---------------------------------------------------------------------------
 # one layer
 # ---------------------------------------------------------------------------
+
+
+def ffn(layer: nn.Module, h: torch.Tensor, cfg: ModelConfig
+        ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
+    """The layer's feed-forward on the normed h: (out, aux loss), the aux
+    loss a float32 scalar tensor for MoE and the number 0.0 for a dense
+    MLP (no device tensor a layer on the serving path, which drops it)."""
+    if hasattr(layer, "moe"):
+        return moe_apply(layer.moe, h, cfg)
+    return mlp(layer.mlp, h), 0.0
 
 
 def _positions(s: int, offset, device) -> torch.Tensor:
@@ -107,13 +134,16 @@ def _rope(cfg: ModelConfig, q, k, offset):
 
 
 def layer_apply(p: Layer, x: torch.Tensor, cfg: ModelConfig, *,
-                backend: str = "chunked") -> torch.Tensor:
+                backend: str = "chunked"
+                ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
+    """Returns (x_out, aux loss)."""
     h = rmsnorm(p.ln1, x)
     q, k, v = qkv_project(p.attn, h, cfg)
     q, k = _rope(cfg, q, k, 0)
     o = attn_mod.attention(q, k, v, causal=True, backend=backend)
     x = x + out_project(p.attn, o)
-    return x + mlp(p.mlp, rmsnorm(p.ln2, x))
+    m, aux = ffn(p, rmsnorm(p.ln2, x), cfg)
+    return x + m, aux
 
 
 # ---------------------------------------------------------------------------
@@ -124,15 +154,16 @@ def layer_apply(p: Layer, x: torch.Tensor, cfg: ModelConfig, *,
 def lm_apply(params: DenseLM, batch: Dict[str, torch.Tensor],
              cfg: ModelConfig, *,
              backend: str = "chunked") -> Dict[str, torch.Tensor]:
-    """``batch["tokens"]`` [B,S] -> ``hidden`` [B,S,D], ``aux_loss`` (0 for
-    a dense model) and ``logits`` [B,S,V] float32."""
+    """``batch["tokens"]`` [B,S] -> ``hidden`` [B,S,D], ``aux_loss`` (the
+    layers' sum over ``n_layers``; 0 for a dense model) and ``logits``
+    [B,S,V] float32."""
     x = embed(params.embed, batch["tokens"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params.layers:
-        x = layer_apply(layer, x, cfg, backend=backend)
+        x, a = layer_apply(layer, x, cfg, backend=backend)
+        aux = aux + a
     x = rmsnorm(params.final_norm, x)
-    return {"hidden": x,
-            "aux_loss": torch.zeros((), dtype=torch.float32,
-                                    device=x.device),
+    return {"hidden": x, "aux_loss": aux / cfg.n_layers,
             "logits": unembed(params.unembed, params.embed, x, cfg)}
 
 
@@ -176,7 +207,8 @@ def _cached_layer(p: Layer, kc: torch.Tensor, vc: torch.Tensor,
     [offset, offset + S)) or decode (``offset`` a [B] tensor: writes each
     row at its own position, then attends over the cache).  ``kc``/``vc``
     are this layer's [B, Smax, KV, Dh] views of the cache, updated in
-    place."""
+    place.  The feed-forward's aux loss is dropped, as the reference's
+    is."""
     h = rmsnorm(p.ln1, x)
     q, k, v = qkv_project(p.attn, h, cfg)
     q, k = _rope(cfg, q, k, offset)
@@ -196,7 +228,7 @@ def _cached_layer(p: Layer, kc: torch.Tensor, vc: torch.Tensor,
         o = attn_mod.attention(q, k, v, causal=True, q_offset=offset,
                                backend=backend)
     x = x + out_project(p.attn, o)
-    return x + mlp(p.mlp, rmsnorm(p.ln2, x))
+    return x + ffn(p, rmsnorm(p.ln2, x), cfg)[0]
 
 
 @torch.no_grad()

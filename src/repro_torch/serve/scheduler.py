@@ -7,13 +7,19 @@ the slot's cache rows, (2) one decode step advances every slot, idle ones
 included, (3) finished rows (EOS or budget) are emitted.  Admission,
 bucketing, the left padding with token 0, the splice of a fresh one-row
 cache into the slot (every cache tensor of two or more dims at
-``[:, slot]``, a one-dim tensor at ``[slot]``, whatever the family) and
-the stop rule are the reference's.  The reference jits the decode step and
-one prefill per bucket; the port runs eagerly.  ``backend`` goes to the
-model's prefill and decode step: for the dense family it is the prefill's
+``[:, slot]``, a one-dim tensor at ``[slot]``, through nested dicts as the
+reference's ``tree_map``, whatever the family) and the stop rule are the
+reference's.  The reference jits the decode step and one prefill per
+bucket; the port runs eagerly.  ``backend`` goes to the model's prefill
+and decode step: for the dense and moe families it is the prefill's
 attention (the decode step attends over the cache by its one-token path);
-for the ssm family it is the scan of both.  ``"kernel"`` is the CUDA
-kernel on the card and its plain version on the CPU.
+for the ssm family it is the scan of both, and for the hybrid family both
+of these.  ``"kernel"`` is the CUDA kernel on the card and its plain
+version on the CPU.
+
+Host syncs: a tick waits for the device once, to copy its argmax back, and
+an admission once more, for its first token; on CUDA the token and prompt
+uploads are staged through pinned memory and copied without waiting.
 """
 from __future__ import annotations
 
@@ -44,6 +50,18 @@ class Result:
     decode_steps: int
 
 
+def _splice(full: dict, row: dict, slot: int) -> None:
+    """Write the one-row cache ``row`` into ``full``'s ``slot``, in place,
+    leaf by leaf through nested dicts."""
+    for name, leaf in full.items():
+        if isinstance(leaf, dict):
+            _splice(leaf, row[name], slot)
+        elif leaf.dim() >= 2:
+            leaf[:, slot:slot + 1] = row[name]
+        else:
+            leaf[slot] = row[name][0]
+
+
 class ServeLoop:
     def __init__(self, api: ModelApi, params, *, slots: int = 4,
                  max_len: int = 256, bucket: int = 32,
@@ -64,6 +82,14 @@ class ServeLoop:
         self.free = list(range(slots))
         self.cache = api.init_cache(slots, max_len, device=self.device)
 
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the loop's device, without waiting for it on
+        CUDA (the pinned staging buffer lives until its copy is done)."""
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
     # -- admission ---------------------------------------------------------
     def submit(self, req: Request):
         self.queue.append(req)
@@ -80,14 +106,10 @@ class ServeLoop:
             prompt[-len(req.prompt):] = req.prompt
             # per-slot prefill into a fresh single-row cache, then splice
             row = self.api.init_cache(1, self.max_len, device=self.device)
-            tokens = torch.from_numpy(prompt[None]).to(self.device)
+            tokens = self._upload(prompt[None])
             logits, row = self.api.prefill(self.params, {"tokens": tokens},
                                            row, backend=self.backend)
-            for name, full in self.cache.items():
-                if full.dim() >= 2:
-                    full[:, slot:slot + 1] = row[name]
-                else:
-                    full[slot] = row[name][0]
+            _splice(self.cache, row, slot)
             tok = int(torch.argmax(logits[0, -1]))
             self.active[slot] = {"req": req, "tokens": [tok], "steps": 0,
                                  "plen": plen}
@@ -101,7 +123,7 @@ class ServeLoop:
         for slot, st in self.active.items():
             tokens[slot, 0] = st["tokens"][-1]
         logits, self.cache = self.api.decode_step(
-            self.params, torch.from_numpy(tokens).to(self.device), self.cache,
+            self.params, self._upload(tokens), self.cache,
             backend=self.backend)
         nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
         done: List[Result] = []

@@ -9,7 +9,10 @@ a CUDA serving loop through the kernel against the same loop through the
 plain attention, and both selective-scan entry points against their plain
 versions with a Mamba serving loop through the kernel against the chunked
 scan; the bf16 flash kernel at its tile edges and on strided views, the
-fused scan across its tile borders, and each kernel's occupancy.  Every
+fused scan across its tile borders, and each kernel's occupancy; the MoE
+layer on the card equal to the CPU with no host sync, MoE and hybrid
+serving loops through the kernels against the plain versions, the
+advisor's DES and an ingest job on CUDA against the CPU.  Every
 test is marked ``gpu`` and skips without a card; this file imports
 neither jax nor ``repro``, so it also runs where only PyTorch is
 installed:
@@ -42,7 +45,9 @@ from repro_torch.kernels.tropical_apsp import (apsp, apsp_ref, kernel,
                                                minplus_matmul,
                                                minplus_matmul_ref)
 from repro_torch.kernels.tropical_apsp.ref import apsp_steps
-from repro_torch.models import get_model
+from repro_torch.data import pipeline_jobs
+from repro_torch.models import get_model, moe
+from repro_torch.roofline import advise_allreduce
 from repro_torch.scenarios import get_scenario
 from repro_torch.serve import Request, ServeLoop
 
@@ -564,3 +569,116 @@ def test_mamba_serve_loop_kernel_equals_chunked_on_card(cuda):
                             if backend == "kernel" else 0)
     assert tokens["kernel"] == tokens["chunked"]
     assert all(len(t) == 7 for t in tokens["kernel"].values())
+
+
+def _moe_layer(device, dtype, seed=0):
+    cfg = dataclasses.replace(get_smoke_config("qwen3-moe-30b-a3b"),
+                              dtype=dtype)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    p = moe.fill_moe(moe.MoE(cfg, "cpu").requires_grad_(False), gen)
+    return cfg, p.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_apply_on_cuda_equals_cpu_without_a_sync(cuda, dtype):
+    """The routing on the card equals the CPU's (float32 router, TF32
+    off), the output agrees (float32 accumulation on both), and the layer
+    issues no host sync (the capacity is static in the shapes)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, p_cpu = _moe_layer("cpu", dtype)
+    p_gpu = _moe_layer(cuda, dtype)[1]
+    x = torch.randn(4, 32, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1)).to(dtype)
+    want, want_aux = moe.moe_apply(p_cpu, x, cfg)
+    xg = x.to(cuda)
+    moe.moe_apply(p_gpu, xg, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, aux = moe.moe_apply(p_gpu, xg, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    cap = moe._capacity(128, cfg)
+    for a, b in zip(moe.route(p_gpu, xg.reshape(128, -1), cfg, cap)[1:4],
+                    moe.route(p_cpu, x.reshape(128, -1), cfg, cap)[1:4]):
+        assert torch.equal(a.cpu(), b)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-6, atol=0)
+
+
+def _loop_tokens(api, params, cuda, backend, prompts):
+    loop = ServeLoop(api, params, slots=2, max_len=96, bucket=32,
+                     backend=backend, device=cuda)
+    for i, pr in enumerate(prompts):
+        loop.submit(Request(rid=i, prompt=pr, max_new=6))
+    out, ticks = [], 0
+    while loop.queue or loop.active:
+        out.extend(loop.tick())
+        ticks += 1
+    return {r.rid: r.tokens for r in out}, ticks
+
+
+@pytest.mark.parametrize("arch,plain", [("qwen3-moe-30b-a3b", "naive"),
+                                        ("jamba-v0.1-52b", "chunked")])
+def test_moe_and_hybrid_serve_loops_kernel_equal_plain_on_card(cuda, arch,
+                                                                plain):
+    """Smoke MoE and hybrid models in float32 on the card: the loop
+    through the kernels gives the greedy tokens of the loop through the
+    plain versions; flash runs once per attention layer per prefill, the
+    fused scan once per Mamba layer per prefill and per tick."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    api = get_model(cfg)
+    params = api.init(0, device=cuda)
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(1, cfg.vocab, n).astype(np.int32)
+               for n in (8, 20, 33)]
+    n_attn = (cfg.n_layers // cfg.attn_every if cfg.attn_every
+              else cfg.n_layers)
+    tokens = {}
+    for backend in ("kernel", plain):
+        fa0, sc0 = fa_kernel.launch_count(), scan_kernel.launch_count()
+        tokens[backend], ticks = _loop_tokens(api, params, cuda, backend,
+                                              prompts)
+        fa = fa_kernel.launch_count() - fa0
+        sc = scan_kernel.launch_count() - sc0
+        kernel = backend == "kernel"
+        assert fa == (n_attn * 3 if kernel else 0)
+        assert sc == ((cfg.n_layers - n_attn) * (3 + ticks) if kernel
+                      else 0)
+    assert tokens["kernel"] == tokens[plain]
+    assert all(len(t) == 7 for t in tokens["kernel"].values())
+
+
+@pytest.mark.parametrize("mesh", [(2, 2), (4, 4)])
+def test_advisor_on_cuda_equals_cpu(cuda, mesh):
+    """The DES ranking on the card equals the CPU's, one APSP launch for
+    each schedule's route table."""
+    before = kernel.launch_counts()["apsp_f32"]
+    got = advise_allreduce(100e6, mesh, device=cuda)
+    assert kernel.launch_counts()["apsp_f32"] - before == 3
+    want = advise_allreduce(100e6, mesh, device="cpu")
+    assert [(a.schedule, a.source) for a in got] == \
+        [(a.schedule, a.source) for a in want]
+    for a, b in zip(got, want):
+        assert a.predicted_s == pytest.approx(b.predicted_s, rel=1e-6)
+
+
+def test_ingest_job_on_cuda_equals_cpu(cuda):
+    from repro_torch.core.mapreduce import build_setup
+    from repro_torch.scenarios.registry import make_cluster
+    topo = get_scenario("leaf-spine").topology()
+    jobs = pipeline_jobs(n_shards=16, shard_gbits=2.0, n_reducers=4)
+    states = [Experiment(build_setup(jobs, make_cluster(topo), k_max=8,
+                                     device=dev),
+                         [PolicyConfig(routing=r) for r in (1, 0)],
+                         device=dev).run().states for dev in (cuda, "cpu")]
+    for name, a, b in zip(states[0]._fields, *states):
+        a = a.cpu()
+        if a.is_floating_point():
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=0,
+                                       equal_nan=True, msg=name)
+        else:
+            assert torch.equal(a, b), name

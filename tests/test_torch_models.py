@@ -91,8 +91,9 @@ def test_unported_archs_raise(arch):
 
 
 def test_moe_family_raises():
+    """The moe family is ported; a moe config without experts is refused."""
     cfg = dataclasses.replace(get_smoke_config("qwen3-4b"), family="moe")
-    with pytest.raises(NotImplementedError, match="item 11, moe"):
+    with pytest.raises(ValueError, match="needs experts"):
         get_model(cfg)
 
 
