@@ -182,7 +182,40 @@ Phases, each printed with its wall time:
    launcher with the same traffic: 16 answers of 17 tokens, 2 x 16 = 32
    flash and 14 x (16 prefills + 64 ticks) = 1120 fused-scan launches;
    the same measurements as phase 13, the long prefill through both
-   kernels against the chunked attention and the chunked scan.
+   kernels against the chunked attention and the chunked scan;
+15. the encoder-decoder family at full width: whisper-base's published
+   config (arXiv:2212.04356 Table 1, "base": 6 encoder and 6 decoder
+   layers, d_model 512, 8 heads of 64; vocab 51865; 109.75 M parameters,
+   random bf16 weights from a seeded generator on the card), nothing cut,
+   through ``get_model(cfg).prefill`` and ``.decode_step`` (the launcher
+   refuses the audio family: its loop feeds token prompts): 8 clips of
+   1500 frame embeddings from the seed, the 4-token start-of-transcript
+   prompt, a cache of 448 text positions, 64 greedy decode steps, with
+   every kernel's launch count reset just before and read just after: 18
+   flash launches in the prefill (encoder, decoder self and cross
+   attention, 6 each), none in decode, no min-plus or scan launch; the
+   encoder's and the prefill's ms, the decode step through Python and as a
+   CUDA graph, decoded tokens a second; flash alone at the encoder's
+   [8,1500,8,64] (non-causal) and the cross attention's [8,4,8,64] x
+   [8,1500,8,64] against naive attention (its error) and sdpa, beside the
+   bound; the encoder's output and the prefill's logits through the
+   kernel against the chunked attention within ``LOGIT_TOL``; peak device
+   memory;
+16. the vision-language family: qwen2-vl-72b's published widths
+   (arXiv:2409.12191: d_model 8192, 64 heads over 8 kv of 128, d_ff 29568,
+   vocab 152064, M-RoPE) with the depth cut from 80 to 20 layers (20.04 B
+   parameters, 40.09 GB; 80 layers take 145.41 GB) through the launcher
+   with phase 7's traffic and every kernel's launch count reset just
+   before and read just after: 16 answers of 17 tokens, 20 x 16 = 320
+   flash launches, no min-plus or scan launch; tok/s, the tick through
+   Python and as a graph, the host syncs of a tick without an admission
+   (exactly one); then the path the launcher cannot reach: a prefill of
+   2048 embeddings from the seed at M-RoPE positions in Qwen2-VL's layout
+   (64 text, a 32 x 56 grid of merged patches, 192 text) through the
+   kernel against the plain attention within ``LOGIT_TOL``, and 16 decode
+   steps on ``batch_extra`` embeddings and positions that continue the
+   text, the first held against a prefill of the 2049 positions; peak
+   device memory.
 
 Then one JSON line with every kernel's numbers and design, the card's
 name and power limit, and last the line ``{"ok": true, "device":
@@ -331,6 +364,29 @@ JAMBA_ARGV = ["--arch", "jamba-v0.1-52b", "--layers", str(JAMBA_LAYERS),
               "--requests", "16", "--slots", "4", "--max-len", "256",
               "--max-new", "16"]
 JAMBA_PARAMS = 26_053_595_136
+
+# phase 15: whisper-base at its published config (arXiv:2212.04356 Table 1,
+# "base"), nothing cut: a batch of 8 clips of 30 s (1500 frames), the
+# 4-token start-of-transcript / language / task / no-timestamps prompt, the
+# text context of 448 tokens, 64 greedy decode steps
+WHISPER_PARAMS = 109_749_248
+WHISPER_BATCH = 8
+WHISPER_PROMPT = 4
+WHISPER_MAX_LEN = 448
+WHISPER_STEPS = 64
+# phase 16: qwen2-vl-72b at its published widths, depth cut from 80 layers
+# (145.41 GB of bf16 weights, past any one card) to 20 (40.09 GB), with
+# phase 7's traffic; then one image-and-text prompt of LONG_PROMPT
+# positions in Qwen2-VL's M-RoPE layout (``vl_pos3``): 64 text positions, a
+# 32 x 56 grid of merged patches, 192 text positions; 16 decode steps on
+# embeddings that continue the text
+VLM_LAYERS = 20
+VLM_ARGV = ["--arch", "qwen2-vl-72b", "--layers", str(VLM_LAYERS),
+            "--requests", "16", "--slots", "4", "--max-len", "256",
+            "--max-new", "16"]
+VLM_PARAMS = 20_044_914_688
+VLM_LAYOUT = (64, 32, 56, 192)
+VLM_STEPS = 16
 
 
 DESIGN = {
@@ -556,6 +612,47 @@ def scan_work(b, s, d, n, fused: bool):
         4 * b * s * d * n, 0
 
 
+def flash_timing(q, k, v, causal, floor_ms, label) -> dict:
+    """The bf16 flash kernel, its plain version and
+    ``scaled_dot_product_attention`` (the yardstick, never called by the
+    port) on these inputs: each one's device time per call (``fenced_ms``
+    less ``floor_ms``, the events' floor) and per call through the wrapper
+    by CUDA events back to back, beside the bound (``attention_work`` over
+    the bf16 tensor-core peak and HBM bandwidth)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     naive_attention)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fns = {
+        "kernel": lambda: flash_attention(q, k, v, causal=causal),
+        "plain": lambda: naive_attention(q, k, v, causal=causal),
+        "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True),
+    }
+    t = {}
+    for name, fn in fns.items():
+        t[f"{name}_call_ms"] = cuda_ms(fn)
+        t[f"{name}_fenced_ms"] = fenced_ms(fn)
+        t[f"{name}_ms"] = t[f"{name}_fenced_ms"] - floor_ms
+    b, sq, h, dh = q.shape
+    nbytes, ops = attention_work(b, sq, k.shape[1], h, k.shape[2], dh,
+                                 causal, 0, q.element_size())
+    t["bound_bytes_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+    t["bound_ops_ms"] = ops / PEAK_BF16_OPS_PER_S * 1e3
+    t["bound_ms"] = max(t["bound_bytes_ms"], t["bound_ops_ms"])
+    t["bound_by"] = ("bytes" if t["bound_bytes_ms"] > t["bound_ops_ms"]
+                     else "operations")
+    t["bytes"], t["operations"] = nbytes, ops
+    print(f"{label}: device time per call: kernel "
+          f"{t['kernel_ms']} ms, plain {t['plain_ms']} ms, sdpa "
+          f"{t['sdpa_ms']} ms; per call through the wrapper (CUDA "
+          f"events, back to back): kernel {t['kernel_call_ms']:.6f}"
+          f" ms, plain {t['plain_call_ms']:.6f} ms, sdpa "
+          f"{t['sdpa_call_ms']:.6f} ms; bound {t['bound_ms']:.6f} "
+          f"ms ({nbytes} bytes, {ops} operations)")
+    return t
+
+
 def minplus_bound(n, squarings, apsp=False):
     """(bound ms, "bytes" or "operations") of ``squarings`` n^3 float32
     min-plus products: the larger of the bytes (one product: two operands
@@ -649,15 +746,18 @@ def time_tick(loop) -> dict:
     return t
 
 
-def long_prefill(loop, plain: str, tol: float) -> dict:
-    """One LONG_PROMPT-token prompt through the prefill with the kernel
-    and with the ``plain`` backend, in turns; their last-position logits
-    must agree within ``tol`` of the largest |logit|."""
+def long_prefill(loop, plain: str, tol: float, batch=None) -> dict:
+    """One LONG_PROMPT-token prompt (``batch``, by default random tokens
+    from seed 0) through the prefill with the kernel and with the
+    ``plain`` backend, in turns; their last-position logits must agree
+    within ``tol`` of the largest |logit|."""
     import numpy as np
     import torch
     api, params, dev = loop.api, loop.params, loop.device
-    prompt = np.random.RandomState(0).randint(1, api.cfg.vocab, LONG_PROMPT)
-    batch = {"tokens": torch.from_numpy(prompt[None]).to(dev)}
+    if batch is None:
+        prompt = np.random.RandomState(0).randint(1, api.cfg.vocab,
+                                                  LONG_PROMPT)
+        batch = {"tokens": torch.from_numpy(prompt[None]).to(dev)}
     logits, prefill_ms = {}, {}
     for backend in ("kernel", plain, "kernel", plain):
         cache = api.init_cache(1, 2 * LONG_PROMPT, device=dev)
@@ -1506,16 +1606,14 @@ def moe_depth_witness(loop, plain: str) -> dict:
     return out
 
 
-def moe_serve(serve_launch, kernels, argv, label, want_params, want,
-              plain) -> dict:
-    """Phases 13 and 14: a MoE model at full width through the launcher
-    with every kernel's launch count reset just before and read just after
-    (``want``: the flash and fused-scan launches the path must make); its
-    tick through Python and as a graph; the host syncs of a tick without
-    an admission (exactly one); the depth witness, then the long prefill
-    through the kernels against the ``plain`` backend, with the share of
-    (token, choice) pairs whose expert differs at each MoE layer; peak
-    device memory."""
+def launcher_report(serve_launch, kernels, argv, label, want_params,
+                    want):
+    """A model at full width through the launcher with every kernel's
+    launch count reset just before and read just after (``want``: the
+    flash and fused-scan launches the path must make; no min-plus or
+    Pallas-contract scan launch); its tick through Python and as a graph;
+    the host syncs of a tick without an admission (exactly one).  Returns
+    (the loop, the report)."""
     import torch
     minplus_kernel, fa_kernel, scan_kernel = kernels
     gc.collect()
@@ -1552,6 +1650,18 @@ def moe_serve(serve_launch, kernels, argv, label, want_params, want,
           f"{report['tick_syncs']}")
     check(report["tick_syncs"] == 1, f"{label}: a tick without an admission"
           f" waited for the device {report['tick_syncs']} times, not once")
+    return loop, report
+
+
+def moe_serve(serve_launch, kernels, argv, label, want_params, want,
+              plain) -> dict:
+    """Phases 13 and 14: a MoE model through ``launcher_report``; the
+    depth witness, then the long prefill through the kernels against the
+    ``plain`` backend, with the share of (token, choice) pairs whose
+    expert differs at each MoE layer; peak device memory."""
+    import torch
+    loop, report = launcher_report(serve_launch, kernels, argv, label,
+                                   want_params, want)
     report["depth_witness"] = moe_depth_witness(loop, plain)
     with RouteRecorder() as rec:
         report.update(long_prefill(loop, plain, LOGIT_TOL))
@@ -1568,7 +1678,219 @@ def moe_serve(serve_launch, kernels, argv, label, want_params, want,
     report["phase_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     print(f"peak device memory over the phase: "
           f"{report['phase_peak_gib']:.3f} GiB")
-    del loop, served
+    del loop
+    return report
+
+
+def whisper_phase(kernels, floor_ms, dev) -> dict:
+    """Phase 15: whisper-base through ``get_model(cfg).prefill`` and
+    ``.decode_step`` (the launcher's loop feeds token prompts only), with
+    every kernel's launch count reset just before and read just after: 18
+    flash launches a prefill (6 encoder, 6 decoder self, 6 cross), none a
+    decode step, no min-plus or scan launch.  The encoder's and the
+    prefill's times, the decode step through Python and as a CUDA graph,
+    decoded tokens a second; flash alone at the encoder's and the cross
+    attention's shapes against naive attention and sdpa; the encoder's
+    output and the prefill's logits through the kernel against the chunked
+    attention within LOGIT_TOL; peak device memory.  The encoder, the
+    prefill and the decode step are each timed through Python and as a
+    CUDA graph (device time with no host in it)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import naive_attention
+    from repro_torch.models import encdec, get_model
+    minplus_kernel, fa_kernel, scan_kernel = kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("whisper-base")
+    api = get_model(cfg)
+    params = api.init(0, device=dev).requires_grad_(False)
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == WHISPER_PARAMS,
+          f"whisper: {n_params} parameters, expected {WHISPER_PARAMS}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b = WHISPER_BATCH
+    batch = {"enc_embeds": torch.randn((b, cfg.enc_seq, cfg.d_model),
+                                       generator=gen, device=dev
+                                       ).to(cfg.dtype),
+             "tokens": torch.randint(1, cfg.vocab, (b, WHISPER_PROMPT),
+                                     generator=gen, device=dev)}
+    report = {"arch": cfg.name, "params": n_params, "batch": b,
+              "enc_seq": cfg.enc_seq, "prompt": WHISPER_PROMPT,
+              "max_len": WHISPER_MAX_LEN, "steps": WHISPER_STEPS}
+
+    # the path, counted: one prefill, then greedy decode steps
+    for kern in kernels:
+        kern.reset_launch_count()
+    cache = api.init_cache(b, WHISPER_MAX_LEN, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = api.prefill(params, batch, cache, backend="kernel")
+    torch.cuda.synchronize()
+    report["first_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    prefill_launches = fa_kernel.launch_count()
+    tokens = [logits[:, -1].argmax(-1, keepdim=True)]
+    t0 = time.perf_counter()
+    for _ in range(WHISPER_STEPS):
+        logits, cache = api.decode_step(params, tokens[-1], cache)
+        tokens.append(logits[:, -1].argmax(-1, keepdim=True))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    made = {"flash_prefill": prefill_launches,
+            "flash_decode": fa_kernel.launch_count() - prefill_launches,
+            "scan": scan_kernel.launch_count(),
+            "minplus": minplus_kernel.launch_count()}
+    want = {"flash_prefill": 3 * cfg.n_layers, "flash_decode": 0, "scan": 0,
+            "minplus": 0}
+    check(made == want, f"whisper: launches {made}, expected {want}")
+    out = torch.cat(tokens, 1)
+    check(out.shape == (b, WHISPER_STEPS + 1)
+          and bool(((out >= 0) & (out < cfg.vocab)).all())
+          and bool(torch.isfinite(logits).all())
+          and int(cache["len"][0]) == WHISPER_PROMPT + WHISPER_STEPS,
+          "whisper: decoded tokens out of the vocab, logits not finite or "
+          "the cache's length wrong")
+    report.update(launches=made, decode_s=decode_s,
+                  decode_tok_s=b * WHISPER_STEPS / decode_s)
+    print(f"whisper-base ({n_params} parameters, {cfg.dtype}), batch {b}: "
+          f"prefill {report['first_prefill_ms']:.3f} ms (first, host "
+          f"clock), {WHISPER_STEPS} greedy decode steps in {decode_s:.3f} s "
+          f"({report['decode_tok_s']:.1f} decoded tok/s), launches {made}")
+
+    # times: the encoder, the prefill, the decode step
+    step_tokens = tokens[-1]
+    for name, fn in (
+            ("encoder", lambda: encdec.encode(params, batch["enc_embeds"],
+                                              cfg, backend="kernel")),
+            ("prefill", lambda: api.prefill(params, batch, cache,
+                                            backend="kernel")),
+            ("step", lambda: api.decode_step(params, step_tokens, cache))):
+        report[f"{name}_ms"] = cuda_ms(fn, warmup=2, repeats=5, inner=3)
+        report[f"{name}_graph_ms"], report[f"{name}_graph_call_ms"] = \
+            graph_ms(fn)
+        print(f"whisper {name}: {report[f'{name}_ms']:.6f} ms per call "
+              f"through Python (CUDA events, back to back); as a CUDA "
+              f"graph: device time {report[f'{name}_graph_ms']} ms, "
+              f"{report[f'{name}_graph_call_ms']:.6f} ms per replay back to "
+              f"back")
+
+    # flash alone at the path's two new shapes
+    hd = (cfg.n_heads, cfg.d_head)
+    x = {}
+    for name, sq, skv in (("encoder", cfg.enc_seq, cfg.enc_seq),
+                          ("cross", WHISPER_PROMPT, cfg.enc_seq)):
+        q = torch.randn((b, sq) + hd, generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        k, v = (torch.randn((b, skv, cfg.n_kv, cfg.d_head), generator=gen,
+                            device=dev).to(torch.bfloat16) for _ in "kv")
+        label = f"flash {name} q {list(q.shape)} k/v {list(k.shape)}"
+        got = fa_kernel.flash_attention_fwd(q, k, v, causal=False)
+        err = max_abs_err(got.float(), naive_attention(
+            q, k, v, causal=False).float())
+        check(err <= FA_TOL["bfloat16"],
+              f"{label}: max |kernel - plain| {err} > {FA_TOL['bfloat16']}")
+        x[name] = {"q": list(q.shape), "kv": list(k.shape), "causal": False,
+                   "max_abs_err": err,
+                   **flash_timing(q, k, v, False, floor_ms, label)}
+    report["flash"] = x
+
+    # held on the card: the kernel against the chunked attention
+    for name, fn in (
+            ("encoder output", lambda be: encdec.encode(
+                params, batch["enc_embeds"], cfg, backend=be)),
+            ("prefill logits", lambda be: api.prefill(
+                params, batch, api.init_cache(b, WHISPER_MAX_LEN,
+                                              device=dev),
+                backend=be)[0][:, -1])):
+        a, c = fn("kernel").float(), fn("chunked").float()
+        diff, scale = float((a - c).abs().max()), float(c.abs().max())
+        check(bool(torch.isfinite(a).all()) and diff <= LOGIT_TOL * scale,
+              f"whisper {name}: kernel and chunked differ by {diff} > "
+              f"{LOGIT_TOL} x {scale}")
+        report[name.replace(" ", "_") + "_spread"] = diff / scale
+        print(f"whisper {name}: max |kernel - chunked| {diff} of max "
+              f"|value| {scale}")
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"peak device memory over the phase: {report['peak_gib']:.3f} GiB")
+    del params, cache
+    return report
+
+
+def vl_pos3(n_text, grid_h, grid_w, n_after):
+    """[1, S, 3] int32 (t, h, w) M-RoPE positions of Qwen2-VL's layout:
+    text at t = h = w = i, an image of grid_h x grid_w merged patches at
+    t = n_text, h = n_text + row, w = n_text + col, then text from the
+    image's largest position + 1."""
+    import numpy as np
+    rows, cols = np.meshgrid(np.arange(grid_h), np.arange(grid_w),
+                             indexing="ij")
+    image = np.stack([np.full(grid_h * grid_w, n_text),
+                      n_text + rows.ravel(), n_text + cols.ravel()], -1)
+    after = image.max() + 1 + np.arange(n_after)
+    pos = np.concatenate([np.repeat(np.arange(n_text)[:, None], 3, 1),
+                          image, np.repeat(after[:, None], 3, 1)])
+    return pos[None].astype(np.int32)
+
+
+def vlm_phase(serve_launch, kernels) -> dict:
+    """Phase 16: qwen2-vl-72b (VLM_LAYERS layers) through
+    ``launcher_report`` (20 x 16 flash launches); then the multimodal path
+    the launcher cannot reach: a LONG_PROMPT-position prefill of
+    embeddings in M-RoPE's layout through the kernel against the plain
+    attention, and VLM_STEPS decode steps on ``batch_extra`` embeddings
+    and positions that continue the text, the first of them held against
+    a prefill of the S + 1 positions; peak device memory."""
+    import torch
+    loop, report = launcher_report(serve_launch, kernels, VLM_ARGV,
+                                   "vlm serve", VLM_PARAMS,
+                                   {"flash": VLM_LAYERS * 16, "scan": 0})
+    api, params, cfg, dev = loop.api, loop.params, loop.api.cfg, loop.device
+
+    # the multimodal path: embeddings and M-RoPE positions
+    pos3 = torch.from_numpy(vl_pos3(*VLM_LAYOUT)).to(dev)
+    check(pos3.shape == (1, LONG_PROMPT, 3), f"vl_pos3: {pos3.shape}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    emb = torch.randn((1, LONG_PROMPT + VLM_STEPS, cfg.d_model),
+                      generator=gen, device=dev).to(cfg.dtype)
+    step_pos = pos3[:, -1:] + 1 + torch.arange(
+        VLM_STEPS, device=dev, dtype=torch.int32)[None, :, None]
+    batch = {"embeds": emb[:, :LONG_PROMPT], "pos3": pos3}
+    report.update(long_prefill(loop, "naive", LOGIT_TOL, batch))
+    full = {"embeds": emb[:, :LONG_PROMPT + 1],
+            "pos3": torch.cat([pos3, step_pos[:, :1]], 1)}
+    want_step = api.prefill(params, full, api.init_cache(
+        1, LONG_PROMPT + 1, device=dev), backend="kernel")[0][0, -1].float()
+    cache = api.init_cache(1, LONG_PROMPT + VLM_STEPS, device=dev)
+    logits, cache = api.prefill(params, batch, cache, backend="kernel")
+    torch.cuda.synchronize()
+    step_logits, t0 = [], time.perf_counter()
+    for t in range(VLM_STEPS):
+        logits, cache = api.decode_step(params, None, cache, batch_extra={
+            "embeds": emb[:, LONG_PROMPT + t:LONG_PROMPT + t + 1],
+            "pos3": step_pos[:, t:t + 1]})
+        step_logits.append(logits[0, -1])
+    torch.cuda.synchronize()
+    report["vl_step_ms"] = (time.perf_counter() - t0) * 1e3 / VLM_STEPS
+    got = step_logits[0].float()
+    diff, scale = float((got - want_step).abs().max()), \
+        float(want_step.abs().max())
+    check(all(bool(torch.isfinite(x).all()) for x in step_logits)
+          and int(cache["len"][0]) == LONG_PROMPT + VLM_STEPS,
+          "vlm decode: logits not finite or the cache's length wrong")
+    check(diff <= LOGIT_TOL * scale, f"vlm decode: the first step's logits "
+          f"differ from the S + 1 prefill's by {diff} > {LOGIT_TOL} x "
+          f"{scale}")
+    report["vl_step_spread"] = diff / scale
+    report["phase_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{VLM_STEPS} decode steps on embeddings and M-RoPE positions: "
+          f"{report['vl_step_ms']:.3f} ms a step (host clock, "
+          f"synchronised); the first step's logits against a prefill of "
+          f"{LONG_PROMPT + 1} positions: max |diff| {diff} of max |logit| "
+          f"{scale}; peak device memory over the phase: "
+          f"{report['phase_peak_gib']:.3f} GiB")
+    del loop, params, cache
     return report
 
 
@@ -1996,33 +2318,8 @@ def main() -> int:
         print(f"fenced_ms of an empty call (the events' floor, taken off "
               f"every fenced time below): {floor_ms} ms")
         for s_len, (q, k, v) in sorted(fa_inputs.items()):
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            fns = {
-                "kernel": lambda: flash_attention(q, k, v, causal=True),
-                "plain": lambda: naive_attention(q, k, v, causal=True),
-                "sdpa": lambda: torch.nn.functional
-                .scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True),
-            }
-            t = {}
-            for name, fn in fns.items():
-                t[f"{name}_call_ms"] = cuda_ms(fn)
-                t[f"{name}_fenced_ms"] = fenced_ms(fn)
-                t[f"{name}_ms"] = t[f"{name}_fenced_ms"] - floor_ms
-            nbytes, ops = attention_work(1, s_len, s_len, 32, 8, 128, True,
-                                         0, 2)
-            t["bound_bytes_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
-            t["bound_ops_ms"] = ops / PEAK_BF16_OPS_PER_S * 1e3
-            t["bound_ms"] = max(t["bound_bytes_ms"], t["bound_ops_ms"])
-            t["bytes"], t["operations"] = nbytes, ops
-            fa_times[s_len] = t
-            print(f"flash S={s_len}: device time per call: kernel "
-                  f"{t['kernel_ms']} ms, plain {t['plain_ms']} ms, sdpa "
-                  f"{t['sdpa_ms']} ms; per call through the wrapper (CUDA "
-                  f"events, back to back): kernel {t['kernel_call_ms']:.6f}"
-                  f" ms, plain {t['plain_call_ms']:.6f} ms, sdpa "
-                  f"{t['sdpa_call_ms']:.6f} ms; bound {t['bound_ms']:.6f} "
-                  f"ms ({nbytes} bytes, {ops} operations)")
+            fa_times[s_len] = flash_timing(q, k, v, True, floor_ms,
+                                           f"flash S={s_len}")
 
     with phase("7 LM serving at full width on CUDA (qwen3-4b)"):
         torch.cuda.synchronize()
@@ -2536,6 +2833,13 @@ def main() -> int:
         serve_hybrid = moe_serve(
             serve_launch, kernels, JAMBA_ARGV, "jamba serve", JAMBA_PARAMS,
             {"flash": 2 * 16, "scan": 14 * (16 + MAMBA_TICKS)}, "chunked")
+
+    with phase("15 encoder-decoder at full width on CUDA (whisper-base)"):
+        serve_whisper = whisper_phase(kernels, floor_ms, dev)
+
+    with phase("16 vision-language serving at full width on CUDA "
+               f"(qwen2-vl-72b, {VLM_LAYERS} of 80 layers)"):
+        serve_vlm = vlm_phase(serve_launch, kernels)
     print(f"sum of phases: {sum(PHASE_S.values()):.3f} s "
           f"({', '.join(f'{k} {v:.1f}' for k, v in PHASE_S.items())})")
 
@@ -2593,21 +2897,24 @@ def main() -> int:
                              "qwen3-moe-30b-a3b":
                                  serve_moe["launches"]["flash"],
                              "jamba-v0.1-52b":
-                                 serve_hybrid["launches"]["flash"]},
+                                 serve_hybrid["launches"]["flash"],
+                             "whisper-base": serve_whisper["launches"][
+                                 "flash_prefill"],
+                             "qwen2-vl-72b": serve_vlm["launches"]["flash"]},
         "max_abs_err": fa_err[LONG_PROMPT],
         "ms": t_fa["kernel_ms"],
         "plain_ms": t_fa["plain_ms"],
         "call_ms": t_fa["kernel_call_ms"],
         "plain_call_ms": t_fa["plain_call_ms"],
         "bound_ms": t_fa["bound_ms"],
-        "bound_by": ("bytes" if t_fa["bound_bytes_ms"] > t_fa["bound_ops_ms"]
-                     else "operations"),
+        "bound_by": t_fa["bound_by"],
         "library_ms": t_fa["sdpa_ms"],
         "library_call_ms": t_fa["sdpa_call_ms"],
         "fenced_floor_ms": floor_ms,
         "build_s": fa_build_s,
         "serve_bucket": {"S": 32, "max_abs_err": fa_err[32],
                          **fa_times[32]},
+        "whisper": serve_whisper["flash"],
         "design": DESIGN["flash"],
         "occupancy": fa_occ,
         "sass": fa_sass,
@@ -2651,7 +2958,8 @@ def main() -> int:
         "failures": failures_report, "ctrl_chaos": ctrl_report,
         "fleet_stream": fleet_report, "advisor": advisor_report,
         "serve": serve, "serve_ssm": serve_ssm, "serve_moe": serve_moe,
-        "serve_hybrid": serve_hybrid, "phase_s": PHASE_S}))
+        "serve_hybrid": serve_hybrid, "serve_whisper": serve_whisper,
+        "serve_vlm": serve_vlm, "phase_s": PHASE_S}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,12 +1,9 @@
 """Assigned-architecture configs (``--arch <id>``): port of
 ``src/repro/configs``.
 
-Each ported module defines ``CONFIG`` (the exact published dims) and
+Each module defines ``CONFIG`` (the exact published dims) and
 ``smoke_config()`` (a reduced same-family config for CPU tests), with the
-reference's field values.  The dense archs, falcon-mamba-7b (the ssm
-family), the two MoE archs and jamba-v0.1-52b (the hybrid family) are
-ported; the others raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+reference's field values, for every arch of ``ARCH_IDS``.
 """
 from __future__ import annotations
 
@@ -20,19 +17,9 @@ ARCH_IDS: Tuple[str, ...] = (
     "moonshot-v1-16b-a3b", "qwen3-moe-30b-a3b", "falcon-mamba-7b",
     "qwen2-vl-72b", "whisper-base", "jamba-v0.1-52b",
 )
-# the archs the port runs (and ``launch/serve.py --arch`` accepts)
-PORTED_ARCH_IDS: Tuple[str, ...] = ARCH_IDS[:7] + ("jamba-v0.1-52b",)
-
-_NOT_PORTED = {
-    "qwen2-vl-72b": "ROADMAP queue 1 item 11, vlm/M-RoPE",
-    "whisper-base": "ROADMAP queue 1 item 11, encdec",
-}
 
 
 def _module(arch_id: str):
-    if arch_id in _NOT_PORTED:
-        raise NotImplementedError(f"arch {arch_id!r} is not ported yet "
-                                  f"({_NOT_PORTED[arch_id]})")
     if arch_id not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch_id!r}")
     name = arch_id.replace("-", "_").replace(".", "_")

@@ -7,18 +7,26 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
       --layers 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-72b \
+      --layers 20
 
 Weights are random (seed 0, drawn on the device); the traffic is the
-reference's: prompts of 4-31 tokens from ``RandomState(0)``.  ``--backend``
-(default ``kernel``: the hand-written CUDA kernel on the card, its plain
-version on the CPU) means, for a dense or MoE arch, the prefill's attention
-(``naive``, ``chunked`` or ``kernel``; the decode step attends over the
-cache by its one-token path), for falcon-mamba-7b the selective scan of
-the prefill and of the decode step (``kernel`` or ``chunked``), and for
+reference's: prompts of 4-31 tokens from ``RandomState(0)``, token prompts
+for every family (qwen2-vl-72b then runs plain RoPE: the loop has no
+``embeds``/``pos3``).  whisper-base is refused: the loop feeds token
+prompts, and the audio family's prefill needs ``enc_embeds`` too (the
+reference's launcher fails at its first admission with
+``KeyError: 'enc_embeds'``).  ``--backend`` (default ``kernel``: the
+hand-written CUDA kernel on the card, its plain version on the CPU)
+means, for a dense, MoE or vlm arch, the prefill's attention (``naive``,
+``chunked`` or ``kernel``; the decode step attends over the cache by its
+one-token path), for falcon-mamba-7b the selective scan of the prefill
+and of the decode step (``kernel`` or ``chunked``), and for
 jamba-v0.1-52b both: the attention layers' prefill and every Mamba
 block's scan.  ``--layers`` cuts the depth at full width, for a model
 whose weights do not fit one card (jamba-v0.1-52b's 32 layers take
-103.27 GB in bf16; 16 layers, two of its four periods, take 52.17 GB).
+103.27 GB in bf16; 16 layers, two of its four periods, take 52.17 GB;
+qwen2-vl-72b's 80 layers take 145.41 GB, 20 layers 40.09 GB).
 """
 from __future__ import annotations
 
@@ -30,7 +38,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..configs import PORTED_ARCH_IDS, get_config, get_smoke_config
+from ..configs import ARCH_IDS, get_config, get_smoke_config
 from ..device import resolve
 from ..models import get_model
 from ..models.attention import BACKENDS
@@ -51,7 +59,7 @@ class ServeRun:
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=PORTED_ARCH_IDS, default="qwen3-4b")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3-4b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
@@ -64,11 +72,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--backend", choices=BACKENDS, default="kernel",
-                    help="dense and MoE archs: the prefill's attention "
+                    help="dense, MoE and vlm archs: the prefill's attention "
                     "(naive, chunked, kernel); falcon-mamba-7b: the "
                     "selective scan of prefill and decode (chunked, "
                     "kernel); jamba-v0.1-52b: both (chunked, kernel)")
     args = ap.parse_args(argv)
+    if get_config(args.arch).family == "audio":
+        ap.error(f"--arch {args.arch}: the serving loop feeds token prompts, "
+                 f"and the audio family's prefill needs enc_embeds (frame "
+                 f"embeddings) as well; drive it through get_model(cfg)"
+                 f".prefill and .decode_step")
     if get_config(args.arch).family in ("ssm", "hybrid") \
             and args.backend not in SCAN_BACKENDS:
         ap.error(f"--backend {args.backend}: {args.arch} takes "

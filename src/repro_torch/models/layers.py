@@ -1,6 +1,5 @@
 """Shared neural layers of the LM families: port of
-``src/repro/models/layers.py`` (M-RoPE is not ported yet, ROADMAP queue 1
-item 11).
+``src/repro/models/layers.py``.
 
 Parameters live in ``nn.Module``s whose attribute names follow the JAX
 param tree's keys, so ``models/weights.py::params_from_jax`` maps one onto
@@ -24,9 +23,8 @@ from torch import nn
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The dense, MoE, SSM and hybrid families' fields of the reference's
-    config, with its defaults.  The other families' fields (enc-dec,
-    M-RoPE, frontends, FSDP) come with the slices that read them."""
+    """The reference's config, its fields and defaults, but for ``fsdp``
+    (its choice of mesh sharding, which a single device does not make)."""
 
     name: str = "model"
     family: str = "dense"  # dense | moe | ssm | hybrid | vlm | audio
@@ -39,6 +37,7 @@ class ModelConfig:
     vocab: int = 1024
     qk_norm: bool = False
     rope_theta: float = 1e6
+    mrope: bool = False            # Qwen2-VL multimodal RoPE (3 position axes)
     tie_embeddings: bool = False
     # MoE
     n_experts: int = 0
@@ -52,6 +51,11 @@ class ModelConfig:
     ssm_expand: int = 2
     # hybrid (Jamba): attention layer every `attn_every` layers
     attn_every: int = 0            # 0 = not hybrid
+    # enc-dec (Whisper): encoder config
+    n_enc_layers: int = 0
+    enc_seq: int = 1500            # whisper: 30 s audio -> 1500 frames
+    # frontend stubs
+    frontend: str = "token"        # token | embed (precomputed frame/patch)
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -158,25 +162,50 @@ def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / d_head))
 
 
-def apply_rope(x: torch.Tensor, pos: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: [B, S, H, Dh]; pos: [B, S] (or [1, S]) integer positions."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)           # [Dh/2]
-    ang = pos[..., None].float() * freqs                       # [B, S, Dh/2]
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x [B, S, H, Dh] rotated by the float32 angles ang [B, S, Dh/2]
+    (half-split pairs), cast back to x's dtype."""
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
 
-def qkv_project(p: Attention, x: torch.Tensor, cfg: ModelConfig):
-    """Returns q [B,S,H,Dh], k/v [B,S,KV,Dh] (pre-RoPE, post-qk-norm).  The
-    reference's cross-attention input (``kv_x``) is not ported yet (the
-    encdec family, ROADMAP queue 1 item 11)."""
+def apply_rope(x: torch.Tensor, pos: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [B, S, H, Dh]; pos: [B, S] (or [1, S]) integer positions."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)           # [Dh/2]
+    return _rotate(x, pos[..., None].float() * freqs)          # [B, S, Dh/2]
+
+
+def apply_mrope(x: torch.Tensor, pos3: torch.Tensor, theta: float,
+                sections=(1, 1, 2)) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: pos3 [B, S, 3] (t, h, w); the Dh/2 frequency
+    channels are split between the three axes in ``sections`` proportion
+    (the reference's (1, 1, 2), in channel order t, h, w), each channel
+    rotated by its axis's position."""
+    half = x.shape[-1] // 2
+    tot = sum(sections)
+    n_t = half * sections[0] // tot
+    n_h = half * sections[1] // tot
+    axis_of = torch.full((half,), 2, dtype=torch.int64, device=x.device)
+    axis_of[:n_t] = 0
+    axis_of[n_t:n_t + n_h] = 1
+    pos = pos3.float()[..., axis_of]                           # [B, S, half]
+    return _rotate(x, pos * rope_freqs(x.shape[-1], theta, x.device))
+
+
+def qkv_project(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                kv_x: Optional[torch.Tensor] = None):
+    """Returns q [B,S,H,Dh] from x and k/v [B,Skv,KV,Dh] from ``kv_x``
+    (x itself by default; the encoder's output for cross-attention),
+    pre-RoPE, post-qk-norm."""
     b, s, _ = x.shape
+    kv_x = x if kv_x is None else kv_x
+    skv = kv_x.shape[1]
     q = (x @ p.wq).reshape(b, s, cfg.n_heads, cfg.d_head)
-    k = (x @ p.wk).reshape(b, s, cfg.n_kv, cfg.d_head)
-    v = (x @ p.wv).reshape(b, s, cfg.n_kv, cfg.d_head)
+    k = (kv_x @ p.wk).reshape(b, skv, cfg.n_kv, cfg.d_head)
+    v = (kv_x @ p.wv).reshape(b, skv, cfg.n_kv, cfg.d_head)
     if cfg.qk_norm:
         q = rmsnorm(p.q_norm, q)
         k = rmsnorm(p.k_norm, k)

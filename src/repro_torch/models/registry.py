@@ -1,6 +1,8 @@
 """Model registry: family -> (init, apply, cache, prefill, decode) API.
-Port of ``src/repro/models/registry.py`` for the dense, moe, ssm and hybrid
-families.
+Port of ``src/repro/models/registry.py`` for every family: dense, moe,
+vlm (the transformer), ssm, hybrid and audio (the encoder-decoder).  The
+reference's input-spec helpers (``train_input_specs`` and the others,
+abstract shapes for its multi-pod dry-run) are not ported.
 
 ``get_model(cfg)`` returns a ``ModelApi`` whose members close over the
 config.  ``init(seed, device=)`` draws the weights from a ``torch.Generator``
@@ -16,14 +18,8 @@ from typing import Any, Callable
 import torch
 
 from ..device import resolve
-from . import hybrid, mamba_lm, transformer
+from . import encdec, hybrid, mamba_lm, transformer
 from .layers import ModelConfig
-
-# family -> the ROADMAP item that ports it
-_NOT_PORTED = {
-    "audio": "ROADMAP queue 1 item 11, encdec",
-    "vlm": "ROADMAP queue 1 item 11, vlm/M-RoPE",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,19 +39,20 @@ _TRANSFORMER = (transformer.lm_init, transformer.lm_apply,
 _FAMILIES = {
     "dense": _TRANSFORMER,
     "moe": _TRANSFORMER,
+    "vlm": _TRANSFORMER,
     "ssm": (mamba_lm.ssm_lm_init, mamba_lm.ssm_lm_apply,
             mamba_lm.ssm_lm_init_cache, mamba_lm.ssm_lm_prefill,
             mamba_lm.ssm_lm_decode_step),
     "hybrid": (hybrid.hybrid_init, hybrid.hybrid_apply,
                hybrid.hybrid_init_cache, hybrid.hybrid_prefill,
                hybrid.hybrid_decode_step),
+    "audio": (encdec.encdec_init, encdec.encdec_apply,
+              encdec.encdec_init_cache, encdec.encdec_prefill,
+              encdec.encdec_decode_step),
 }
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  f"({_NOT_PORTED[cfg.family]})")
     if cfg.family not in _FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.family == "moe" and not cfg.is_moe_arch:

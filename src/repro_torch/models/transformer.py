@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense and MoE families: port of
+"""Decoder-only transformer LM, dense, MoE and vlm families: port of
 ``src/repro/models/transformer.py``.
 
 Three entry points, as in the reference's serving split:
@@ -12,7 +12,11 @@ the port keeps one ``Layer`` module per layer in an ``nn.ModuleList`` and
 loops over them.  The KV cache keeps the reference's layout,
 ``{"k", "v": [L, B, Smax, KV, Dh], "len": [B] int32}``, but prefill and
 decode write it in place and return it (the reference returns new arrays):
-a serving loop owns its cache.  A layer holds ``moe`` (``models/moe.py``)
+a serving loop owns its cache.  Input is either ``tokens`` [B,S] or
+``embeds`` [B,S,D] (the vlm family's stub frontend: pre-merged text and
+vision embeddings, cast to the config's dtype), with ``pos3`` [B,S,3]
+(t, h, w) for M-RoPE when the config sets ``mrope``; without ``pos3`` the
+positions are the plain RoPE's.  A layer holds ``moe`` (``models/moe.py``)
 in place of ``mlp`` where the reference's ``layer_init`` puts one: every
 layer of a ``moe``-family config, and every layer of any config with
 experts and ``moe_every == 1``.
@@ -27,8 +31,8 @@ from torch import nn
 from ..device import resolve
 from . import attention as attn_mod
 from .layers import (MLP, Attention, Embed, ModelConfig, RMSNorm, Unembed,
-                     apply_rope, embed, fill_normal, mlp, out_project,
-                     qkv_project, rmsnorm, unembed)
+                     apply_mrope, apply_rope, embed, fill_normal, mlp,
+                     out_project, qkv_project, rmsnorm, unembed)
 from .moe import MoE, fill_moe, moe_apply
 
 Cache = Dict[str, torch.Tensor]
@@ -47,8 +51,8 @@ class Layer(nn.Module):
 
 
 class DenseLM(nn.Module):
-    """Parameters of the dense or MoE LM, named as the reference's param
-    tree."""
+    """Parameters of the dense, MoE or vlm LM, named as the reference's
+    param tree."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -127,19 +131,32 @@ def _positions(s: int, offset, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None, :] + offset
 
 
-def _rope(cfg: ModelConfig, q, k, offset):
+def _rope(cfg: ModelConfig, q, k, offset, pos3=None):
+    """M-RoPE at ``pos3`` [B,S,3] when the config sets ``mrope`` and the
+    batch carries one; otherwise RoPE at ``offset`` + 0..S-1."""
+    if cfg.mrope and pos3 is not None:
+        return (apply_mrope(q, pos3, cfg.rope_theta),
+                apply_mrope(k, pos3, cfg.rope_theta))
     pos = _positions(q.shape[1], offset, q.device)
     return (apply_rope(q, pos, cfg.rope_theta),
             apply_rope(k, pos, cfg.rope_theta))
 
 
+def _inputs(params: nn.Module, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig) -> torch.Tensor:
+    """The embedded ``tokens``, or ``embeds`` in the config's dtype."""
+    if "tokens" in batch:
+        return embed(params.embed, batch["tokens"])
+    return batch["embeds"].to(cfg.dtype)
+
+
 def layer_apply(p: Layer, x: torch.Tensor, cfg: ModelConfig, *,
-                backend: str = "chunked"
+                backend: str = "chunked", pos3=None
                 ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
     """Returns (x_out, aux loss)."""
     h = rmsnorm(p.ln1, x)
     q, k, v = qkv_project(p.attn, h, cfg)
-    q, k = _rope(cfg, q, k, 0)
+    q, k = _rope(cfg, q, k, 0, pos3)
     o = attn_mod.attention(q, k, v, causal=True, backend=backend)
     x = x + out_project(p.attn, o)
     m, aux = ffn(p, rmsnorm(p.ln2, x), cfg)
@@ -154,13 +171,14 @@ def layer_apply(p: Layer, x: torch.Tensor, cfg: ModelConfig, *,
 def lm_apply(params: DenseLM, batch: Dict[str, torch.Tensor],
              cfg: ModelConfig, *,
              backend: str = "chunked") -> Dict[str, torch.Tensor]:
-    """``batch["tokens"]`` [B,S] -> ``hidden`` [B,S,D], ``aux_loss`` (the
-    layers' sum over ``n_layers``; 0 for a dense model) and ``logits``
-    [B,S,V] float32."""
-    x = embed(params.embed, batch["tokens"])
+    """``batch["tokens"]`` [B,S] or ``batch["embeds"]`` [B,S,D] (and
+    ``pos3``) -> ``hidden`` [B,S,D], ``aux_loss`` (the layers' sum over
+    ``n_layers``; 0 for a dense model) and ``logits`` [B,S,V] float32."""
+    x = _inputs(params, batch, cfg)
+    pos3 = batch.get("pos3")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params.layers:
-        x, a = layer_apply(layer, x, cfg, backend=backend)
+        x, a = layer_apply(layer, x, cfg, backend=backend, pos3=pos3)
         aux = aux + a
     x = rmsnorm(params.final_norm, x)
     return {"hidden": x, "aux_loss": aux / cfg.n_layers,
@@ -202,16 +220,16 @@ def _scatter_kv(cache: torch.Tensor, new: torch.Tensor,
 def _cached_layer(p: Layer, kc: torch.Tensor, vc: torch.Tensor,
                   x: torch.Tensor, cfg: ModelConfig, offset,
                   cache_len: Optional[torch.Tensor], *,
-                  backend: str) -> torch.Tensor:
+                  backend: str, pos3=None) -> torch.Tensor:
     """One layer of prefill (``offset`` an int: writes the cache at
     [offset, offset + S)) or decode (``offset`` a [B] tensor: writes each
     row at its own position, then attends over the cache).  ``kc``/``vc``
     are this layer's [B, Smax, KV, Dh] views of the cache, updated in
-    place.  The feed-forward's aux loss is dropped, as the reference's
-    is."""
+    place.  ``pos3`` goes to ``_rope``.  The feed-forward's aux loss is
+    dropped, as the reference's is."""
     h = rmsnorm(p.ln1, x)
     q, k, v = qkv_project(p.attn, h, cfg)
-    q, k = _rope(cfg, q, k, offset)
+    q, k = _rope(cfg, q, k, offset, pos3)
     s = x.shape[1]
     if isinstance(offset, int):
         if offset < 0 or offset + s > kc.shape[1]:
@@ -237,12 +255,14 @@ def lm_prefill(params: DenseLM, batch: Dict[str, torch.Tensor],
                backend: str = "chunked") -> Tuple[torch.Tensor, Cache]:
     """Full-prompt forward; fills cache[:, :, :S] in place; returns the
     last position's logits [B, 1, V] float32 and the cache with
-    ``len = S``."""
-    x = embed(params.embed, batch["tokens"])
+    ``len = S``.  The batch holds ``tokens`` or ``embeds`` (and
+    ``pos3``), as ``lm_apply``'s does."""
+    x = _inputs(params, batch, cfg)
+    pos3 = batch.get("pos3")
     s = x.shape[1]
     for i, layer in enumerate(params.layers):
         x = _cached_layer(layer, cache["k"][i], cache["v"][i], x, cfg, 0,
-                          None, backend=backend)
+                          None, backend=backend, pos3=pos3)
     x = rmsnorm(params.final_norm, x[:, -1:])
     logits = unembed(params.unembed, params.embed, x, cfg)
     return logits, {"k": cache["k"], "v": cache["v"],
@@ -250,21 +270,26 @@ def lm_prefill(params: DenseLM, batch: Dict[str, torch.Tensor],
 
 
 @torch.no_grad()
-def lm_decode_step(params: DenseLM, tokens: torch.Tensor, cache: Cache,
-                   cfg: ModelConfig, *,
+def lm_decode_step(params: DenseLM, tokens: Optional[torch.Tensor],
+                   cache: Cache, cfg: ModelConfig,
+                   batch_extra: Optional[Dict[str, torch.Tensor]] = None, *,
                    backend: str = "kernel") -> Tuple[torch.Tensor, Cache]:
-    """tokens [B,1]; each row's RoPE position and cache slot is its
-    ``len``.  Returns logits [B, 1, V] float32 and the cache (written in
-    place) with ``len + 1``.  The step attends over the cache by its
-    one-token path (``decode_attention``) whatever ``backend`` names, the
-    prefill's attention, which a serving loop passes to every family.  The
-    reference's ``batch_extra`` (embeddings in place of tokens) is not
-    ported yet (the vlm family, ROADMAP queue 1 item 11)."""
-    x = embed(params.embed, tokens)
+    """tokens [B,1], or ``None`` with ``batch_extra["embeds"]`` [B,1,D];
+    ``batch_extra["pos3"]`` [B,1,3] gives an M-RoPE config its positions.
+    Each row's cache slot (and plain RoPE position) is its ``len``.
+    Returns logits [B, 1, V] float32 and the cache (written in place) with
+    ``len + 1``.  The step attends over the cache by its one-token path
+    (``decode_attention``) whatever ``backend`` names, the prefill's
+    attention, which a serving loop passes to every family."""
+    batch = dict(batch_extra or {})
+    if tokens is not None:
+        batch["tokens"] = tokens
+    x = _inputs(params, batch, cfg)
+    pos3 = batch.get("pos3")
     pos = cache["len"]                                           # [B]
     for i, layer in enumerate(params.layers):
         x = _cached_layer(layer, cache["k"][i], cache["v"][i], x, cfg, pos,
-                          pos + 1, backend="naive")
+                          pos + 1, backend="naive", pos3=pos3)
     x = rmsnorm(params.final_norm, x)
     logits = unembed(params.unembed, params.embed, x, cfg)
     return logits, {"k": cache["k"], "v": cache["v"],

@@ -4,8 +4,10 @@
 as nested dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray,
 params)``), layers stacked along a leading [L] axis (the hybrid family:
 ``period``, a tuple of ``attn_every`` slots each stacked over the periods
-[P, ...]), and returns the port's model of ``cfg.family`` (``DenseLM``,
-``SSMLM`` or ``HybridLM``) holding the same numbers.  bf16 arrays arrive
+[P, ...]; the audio family: ``enc_layers`` over ``n_enc_layers or
+n_layers`` and ``dec_layers`` over ``n_layers``), and returns the port's
+model of ``cfg.family`` (``DenseLM`` for dense, moe and vlm, ``SSMLM``,
+``HybridLM`` or ``EncDecLM``) holding the same numbers.  bf16 arrays arrive
 as numpy arrays of the ``bfloat16`` extension type, which
 ``torch.from_numpy`` refuses; they are carried across bit for bit as int16
 and viewed as ``torch.bfloat16``, so this module needs no ``ml_dtypes``.
@@ -18,13 +20,14 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from .encdec import EncDecLM, n_enc_layers
 from .layers import ModelConfig
 from .hybrid import HybridLM
 from .mamba_lm import SSMLM
 from .transformer import DenseLM
 
-_MODELS = {"dense": DenseLM, "moe": DenseLM, "ssm": SSMLM,
-           "hybrid": HybridLM}
+_MODELS = {"dense": DenseLM, "moe": DenseLM, "vlm": DenseLM, "ssm": SSMLM,
+           "hybrid": HybridLM, "audio": EncDecLM}
 
 
 def to_torch(a: Any) -> torch.Tensor:
@@ -53,12 +56,15 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
 def _unstack(name: str, t: torch.Tensor, cfg: ModelConfig):
     """(port name, tensor) pairs of one leaf: a stacked layer leaf split
     into its layers, any other leaf as it is."""
-    if name.startswith("layers."):
-        if t.shape[0] != cfg.n_layers:
+    stacks = {"layers": cfg.n_layers, "dec_layers": cfg.n_layers,
+              "enc_layers": n_enc_layers(cfg)}
+    stack, _, rest = name.partition(".")
+    if stack in stacks:
+        n = stacks[stack]
+        if t.shape[0] != n:
             raise ValueError(f"{name}: leading axis {t.shape[0]} != "
-                             f"n_layers {cfg.n_layers}")
-        rest = name[len("layers."):]
-        return [(f"layers.{i}.{rest}", t[i]) for i in range(cfg.n_layers)]
+                             f"{n} layers")
+        return [(f"{stack}.{i}.{rest}", t[i]) for i in range(n)]
     if name.startswith("period."):
         slot, rest = name[len("period."):].split(".", 1)
         n_p = cfg.n_layers // cfg.attn_every
@@ -73,13 +79,12 @@ def _unstack(name: str, t: torch.Tensor, cfg: ModelConfig):
 @torch.no_grad()
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device=None) -> torch.nn.Module:
-    """The reference's param tree of a dense, moe, ssm or hybrid LM as the
-    port's model on ``device`` (CUDA unless asked for the CPU).
-    Every leaf must match a parameter by name, shape and dtype, and every
-    parameter must be covered."""
+    """The reference's param tree of any family's LM as the port's model
+    on ``device`` (CUDA unless asked for the CPU).  Every leaf must match a
+    parameter by name, shape and dtype, and every parameter must be
+    covered."""
     if cfg.family not in _MODELS:
-        raise NotImplementedError(f"params_from_jax: family {cfg.family!r} "
-                                  f"is not ported yet")
+        raise ValueError(f"params_from_jax: unknown family {cfg.family!r}")
     dev = resolve(device)
     state = {}
     for name, arr in _flatten(tree).items():

@@ -11,10 +11,12 @@ cache into the slot (every cache tensor of two or more dims at
 reference's ``tree_map``, whatever the family) and the stop rule are the
 reference's.  The reference jits the decode step and one prefill per
 bucket; the port runs eagerly.  ``backend`` goes to the model's prefill
-and decode step: for the dense and moe families it is the prefill's
+and decode step: for the dense, moe and vlm families it is the prefill's
 attention (the decode step attends over the cache by its one-token path);
 for the ssm family it is the scan of both, and for the hybrid family both
-of these.  ``"kernel"`` is the CUDA kernel on the card and its plain
+of these.  The loop feeds token prompts only: a vlm model runs plain RoPE
+here, and the audio family, whose prefill needs frame embeddings, is not
+served by it.  ``"kernel"`` is the CUDA kernel on the card and its plain
 version on the CPU.
 
 Host syncs: a tick waits for the device once, to copy its argmax back, and

@@ -69,11 +69,9 @@ def test_unported_axes_raise():
     """Every axis of the front door runs now: several scenarios, the
     failure, degradation and ctrl crosses, the failure, ctrl, chaos and
     streaming registry entries, ``run_fleet`` and ``run_stream``, the last
-    three equal to the reference's.  Only the LM archs of
-    ``configs._NOT_PORTED`` still raise."""
+    three equal to the reference's."""
     from repro.scenarios import get_scenario as ref_get_scenario
     from repro.scenarios.registry import stream_arrivals as ref_arrivals
-    from repro_torch.configs import _NOT_PORTED, get_config
     from repro_torch.core import CtrlPlaneConfig
     from repro_torch.core.failures import no_failures
     from repro_torch.scenarios import get_scenario
@@ -114,9 +112,6 @@ def test_unported_axes_raise():
     for pi in range(2):
         for k, v in rst.jobs[pi].items():
             assert np.array_equal(st.jobs[pi][k], v), k
-    for arch in _NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="item 11"):
-            get_config(arch)
 
 
 def test_fleet_no_rebuild_on_identical_meta():

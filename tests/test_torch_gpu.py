@@ -403,6 +403,13 @@ def test_flash_bf16_offsets_and_noncausal(cuda, b, sq, skv, causal, off):
                 off)
 
 
+# whisper-base's two new shapes: the encoder's non-causal self-attention
+# over 1500 frames, and the cross-attention of a 4-token prompt over them
+@pytest.mark.parametrize("sq", [1500, 4])
+def test_flash_bf16_at_whisper_shapes(cuda, sq):
+    _hold_flash(*_bf16_qkv(cuda, sq, 8, sq, 1500, 8, 8, 64), False, 0)
+
+
 def test_flash_bf16_takes_an_aligned_view_and_refuses_a_misaligned_one(cuda):
     """q, k, v cut from one fused [B, S, H + 2 KV, Dh] buffer: strided,
     16-byte aligned, taken by TMA.  A view one element off a 16-byte
@@ -650,6 +657,73 @@ def test_moe_and_hybrid_serve_loops_kernel_equal_plain_on_card(cuda, arch,
                       else 0)
     assert tokens["kernel"] == tokens[plain]
     assert all(len(t) == 7 for t in tokens["kernel"].values())
+
+
+def _smoke_batches(cfg, b, s):
+    """The prefill's batch and three decode steps' arguments of a smoke
+    config: frames and tokens (audio), or embeddings with M-RoPE positions
+    of text, a 2 x 3 patch grid and text (vlm); numpy from a seed."""
+    rng = np.random.RandomState(3)
+    if cfg.family == "audio":
+        prefill = {"enc_embeds": rng.standard_normal(
+                       (b, cfg.enc_seq, cfg.d_model)).astype(np.float32),
+                   "tokens": rng.randint(0, cfg.vocab, (b, s)).astype(
+                       np.int32)}
+        return prefill, [({"tokens": rng.randint(0, cfg.vocab, (b, 1)).astype(
+            np.int32)}) for _ in range(3)]
+    image = [(3, 3 + r, 3 + c) for r in range(2) for c in range(3)]
+    pos = [(i, i, i) for i in range(3)] + image + \
+        [(6 + i, 6 + i, 6 + i) for i in range(s - 9 + 3)]
+    pos3 = np.tile(np.array(pos, np.int32)[None], (b, 1, 1))
+    emb = rng.standard_normal((b, s + 3, cfg.d_model)).astype(np.float32)
+    prefill = {"embeds": emb[:, :s], "pos3": pos3[:, :s]}
+    return prefill, [{"batch_extra": {
+        "embeds": emb[:, s + t:s + t + 1],
+        "pos3": np.ascontiguousarray(pos3[:, s + t:s + t + 1])}}
+        for t in range(3)]
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "qwen2-vl-72b"])
+def test_encdec_and_vlm_on_cuda_equal_cpu(cuda, arch):
+    """Smoke whisper and qwen2-vl models in float32: a prefill through the
+    flash kernel and three decode steps on the card (tokens; embeddings
+    and M-RoPE positions through ``batch_extra``) equal the same on the
+    CPU, logits and every cache leaf; flash runs once per attention of
+    the prefill (3 a decoder layer for whisper) and never in decode."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    api = get_model(cfg)
+    cpu_params = api.init(0, device="cpu")
+    params = api.init(0, device="cpu").to(cuda)
+    prefill, steps = _smoke_batches(cfg, 2, 12)
+    out = {}
+    for dev, p in ((cuda, params), ("cpu", cpu_params)):
+        to = lambda d: {k: torch.from_numpy(v).to(dev) for k, v in d.items()}
+        fa0 = fa_kernel.launch_count()
+        cache = api.init_cache(2, 20, device=dev)
+        logits, cache = api.prefill(p, to(prefill), cache, backend="kernel")
+        runs = [(logits.cpu(), {k: v.cpu().clone()
+                                for k, v in cache.items()})]
+        fa1 = fa_kernel.launch_count()
+        for st in steps:
+            if "tokens" in st:
+                logits, cache = api.decode_step(p, to(st)["tokens"], cache)
+            else:
+                logits, cache = api.decode_step(
+                    p, None, cache, batch_extra=to(st["batch_extra"]))
+            runs.append((logits.cpu(), {k: v.cpu().clone() for k, v in
+                                        cache.items()}))
+        launches = (fa1 - fa0, fa_kernel.launch_count() - fa1)
+        out[str(dev)] = runs
+        assert launches == ((cfg.n_layers * (3 if arch == "whisper-base"
+                                             else 1), 0)
+                            if dev == cuda else (0, 0))
+    for (g, gc), (w, wc) in zip(out[str(cuda)], out["cpu"]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        assert set(gc) == set(wc)
+        for name in gc:
+            torch.testing.assert_close(gc[name], wc[name], rtol=1e-4,
+                                       atol=1e-4, msg=name)
 
 
 @pytest.mark.parametrize("mesh", [(2, 2), (4, 4)])

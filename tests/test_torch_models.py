@@ -16,20 +16,20 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import ARCH_IDS
 from repro.configs import get_config as ref_get_config
 from repro.configs import get_smoke_config as ref_get_smoke_config
 from repro.models import get_model as ref_get_model
 from repro.models import layers as ref_layers
-from repro_torch.configs import PORTED_ARCH_IDS, get_config, get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.models import get_model, layers
 from repro_torch.models.transformer import _scatter_kv, lm_init_cache
-from repro_torch.models.weights import _flatten, params_from_jax, to_torch
+from repro_torch.models.weights import (_MODELS, _flatten, params_from_jax,
+                                       to_torch)
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)
 KEY = jax.random.PRNGKey(0)
-DENSE_ARCH_IDS = tuple(a for a in PORTED_ARCH_IDS
+DENSE_ARCH_IDS = tuple(a for a in ARCH_IDS
                        if get_config(a).family == "dense")
 
 
@@ -65,7 +65,7 @@ def _tokens(seed, b, s, vocab):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", PORTED_ARCH_IDS)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_configs_equal_reference(arch):
     """The port's fields equal the reference's; every field the port does
     not carry stays at the reference's default in these configs."""
@@ -81,13 +81,22 @@ def test_configs_equal_reference(arch):
             {f: getattr(ref_default, f) for f in a if f not in fields}
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if a not in PORTED_ARCH_IDS])
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        get_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        get_smoke_config(arch)
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_arch_builds(arch):
+    """``get_model`` builds every arch: the published config's model (on
+    the meta device, no allocation) has the reference's parameter count
+    (``eval_shape`` of its init), and the smoke config's initialises and
+    gets its cache on the CPU."""
+    cfg = get_config(arch)
+    sds = jax.eval_shape(ref_get_model(ref_get_config(arch)).init, KEY)
+    want = sum(int(np.prod(l.shape)) for l in jax.tree_util.tree_leaves(sds))
+    model = _MODELS[cfg.family](cfg, "meta")
+    assert sum(p.numel() for p in model.parameters()) == want
+    api = get_model(get_smoke_config(arch))
+    params = api.init(0, device="cpu")
+    assert all(bool(p.isfinite().all()) for p in params.parameters())
+    cache = _flatten(api.init_cache(2, 8, device="cpu"))
+    assert cache["len"].tolist() == [0, 0]
 
 
 def test_moe_family_raises():
