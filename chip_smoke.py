@@ -217,6 +217,22 @@ Phases, each printed with its wall time:
    text, the first held against a prefill of the 2049 positions; peak
    device memory.
 
+17. training at full width: (a) ``python -m repro_torch.launch.train
+   --arch qwen3-4b --smoke --steps 12 --ckpt-every 4`` in a process of its
+   own, twice at once, each into its own checkpoint directory, once with
+   ``--crash-at 6``: the crashed run restarts once, the two final
+   checkpoints are bitwise equal, and the one written on CUDA restores on
+   the CPU; (b) qwen3-4b's published config (36 layers, 4.41 B parameters,
+   random bf16 weights from seed 0 on the card) through
+   ``make_train_step(backend="chunked", remat=True)`` with the launcher's
+   AdamW on one fixed ``TokenPipeline`` batch of 4 x 512 tokens for 8
+   steps, with every kernel's launch count reset just before and read just
+   after (none: the train step runs the plain backends): the loss falls by
+   more than 0.1; the step's ms (median of steps 2-8, synchronised) and
+   tokens/s beside the reckoned bound, the optimizer alone, peak device
+   memory, host syncs a step, and one step under the profiler (device
+   time, device ops, the largest kernels).  No checkpoint at full width.
+
 Then one JSON line with every kernel's numbers and design, the card's
 name and power limit, and last the line ``{"ok": true, "device":
 {...}}``.  Any failure raises and exits non-zero; without a CUDA device, or without the
@@ -387,6 +403,21 @@ VLM_ARGV = ["--arch", "qwen2-vl-72b", "--layers", str(VLM_LAYERS),
 VLM_PARAMS = 20_044_914_688
 VLM_LAYOUT = (64, 32, 56, 192)
 VLM_STEPS = 16
+# phase 17: training.  (a) the launcher at smoke size in two processes of
+# its own, one crashed at TRAIN_CRASH_AT; (b) qwen3-4b at its published
+# config, nothing cut (36 layers, 4.41 B parameters: 8.82 GB of bf16
+# weights, as much again of grads and 35.3 GB of float32 moments), the
+# train step alone on one fixed batch: no checkpoint at full width, where
+# the reference's layout (float32, both moments) would write ~53 GB
+TRAIN_SMOKE_ARGV = ["-m", "repro_torch.launch.train", "--arch", "qwen3-4b",
+                    "--smoke", "--steps", "12", "--ckpt-every", "4"]
+TRAIN_CRASH_AT = 6
+TRAIN_PARAMS = 4_411_424_256
+TRAIN_BATCH = (4, 512)
+TRAIN_STEPS = 8
+# the launcher's AdamW for TRAIN_STEPS steps: --lr's default and warmup
+# max(1, steps // 20)
+TRAIN_LR = 3e-4
 
 
 DESIGN = {
@@ -507,12 +538,13 @@ def device_ms(fn, calls: int = 1, name: str | None = None):
     return total_us / 1e3 / calls if total_us > 0 else None
 
 
-def device_profile(fn):
-    """``(busy ms, device ops)`` of one run of ``fn`` from one
+def device_profile(fn, top: int = 10):
+    """``(busy ms, device ops, largest)`` of one run of ``fn`` from one
     ``torch.profiler`` trace of the card: the summed device time of its
-    kernels, copies and fills (``None`` when the trace holds none), and
-    how many it issued.  One trace for both: processing a trace of ~180k
-    device ops takes tens of seconds."""
+    kernels, copies and fills (``None`` when the trace holds none), how
+    many it issued, and the ``top`` of them by self device time as (name,
+    ms, calls).  One trace for all: processing a trace of ~180k device ops
+    takes tens of seconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -520,10 +552,14 @@ def device_profile(fn):
                  acc_events=True) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    events = sorted((e for e in prof.key_averages()
+                     if e.self_device_time_total > 0),
+                    key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in events)
     return (busy_us / 1e3 if busy_us > 0 else None,
-            sum(e.count for e in events))
+            sum(e.count for e in events),
+            [(e.key[:80], e.self_device_time_total / 1e3, e.count)
+             for e in events[:top]])
 
 
 def fenced_ms(fn, samples: int = 10):
@@ -1298,7 +1334,7 @@ def phase11(kernels, cpu_jobs) -> dict:
         window()
         torch.cuda.synchronize()
         window_s = time.perf_counter() - t0
-    busy, ops = device_profile(window)
+    busy, ops, _ = device_profile(window)
     idle_share = None if busy is None else 1 - busy / 1e3 / window_s
     syncs = count_syncs(window)
     summaries = {res.policy_names[pi]: res.summary(pi)
@@ -1891,6 +1927,198 @@ def vlm_phase(serve_launch, kernels) -> dict:
           f"{scale}; peak device memory over the phase: "
           f"{report['phase_peak_gib']:.3f} GiB")
     del loop, params, cache
+    return report
+
+
+def train_flops(cfg, b: int, s: int) -> dict:
+    """Operations of one train step of ``cfg`` on b x s tokens with every
+    layer rematerialised: the layers' products (the projections and the
+    MLP, 2 a multiply-add, and attention's two products over the causal
+    pairs) run three times forward (the forward, the recompute, and the
+    backward's two products of each) and once more; the float32
+    unembedding, which has no recompute, three times.  Returns the bf16
+    and the float32 operations."""
+    t = b * s
+    d, h, kv, dh, f = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head, cfg.d_ff
+    layer = 2 * t * (2 * d * h * dh + 2 * d * kv * dh + 3 * d * f) \
+        + 4 * b * h * dh * s * (s + 1) // 2
+    return {"bf16": 4 * cfg.n_layers * layer,
+            "f32": 3 * 2 * t * d * cfg.vocab}
+
+
+def launcher_crash_restart() -> dict:
+    """Phase 17(a): the train launcher at smoke size on CUDA in two
+    processes at once, each into its own checkpoint directory, one
+    crashed at TRAIN_CRASH_AT: both final checkpoints bitwise equal; the
+    checkpoint written on CUDA restored on the CPU, every leaf bitwise."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train import init as opt_init
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {"plain": [], "crash": ["--crash-at", str(TRAIN_CRASH_AT)]}
+        procs = {}
+        try:
+            t0 = time.perf_counter()
+            for name, extra in runs.items():
+                procs[name] = subprocess.Popen(
+                    [sys.executable, *TRAIN_SMOKE_ARGV, "--ckpt-dir",
+                     os.path.join(tmp, name), *extra], cwd=ROOT, env=env,
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+            outs = {name: p.communicate(timeout=300)[0]
+                    for name, p in procs.items()}
+            wall_s = time.perf_counter() - t0
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        report = {"wall_s": wall_s}
+        for name, p in procs.items():
+            print(f"launcher ({name}): {outs[name].strip()}")
+            check(p.returncode == 0, f"train launcher ({name}) exited "
+                  f"{p.returncode}")
+            restarts = int(outs[name].rsplit("restarts=", 1)[1].split()[0])
+            report[f"{name}_restarts"] = restarts
+            check(restarts == (name == "crash"), f"train launcher ({name}):"
+                  f" {restarts} restarts")
+        final = {name: dict(np.load(os.path.join(
+            tmp, name, "step_00000012", "arrays.npz"))) for name in runs}
+        a, b = final["plain"], final["crash"]
+        check(set(a) == set(b) and all(
+            a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes()
+            for k in a), "train launcher: the crashed run's final "
+            "checkpoint differs from the plain run's")
+        cfg = get_smoke_config("qwen3-4b")
+        params = get_model(cfg).init(1, device="cpu")
+        like = (params, opt_init(AdamWConfig(), params))
+        ckpt.restore(os.path.join(tmp, "plain"), like)
+        got = ckpt._flatten(like)
+        check(set(got) == set(a) and all(
+            np.array_equal(got[k], a[k]) for k in a),
+            "train launcher: the CUDA checkpoint restored on the CPU "
+            "differs from it")
+    report.update(leaves=len(a), bitwise_equal=True, cpu_restore=True)
+    print(f"train launcher, two processes on CUDA ({wall_s:.3f} s wall): "
+          f"restarts plain {report['plain_restarts']}, crashed "
+          f"{report['crash_restarts']}; the {len(a)} leaves of both final "
+          f"checkpoints bitwise equal; the CUDA checkpoint restores on the "
+          f"CPU bit for bit")
+    return report
+
+
+def train_phase(kernels, card: str) -> dict:
+    """Phase 17: ``launcher_crash_restart``, then qwen3-4b's train step at
+    full width (TRAIN_STEPS steps on one fixed batch) with every kernel's
+    launch count reset just before and read just after; the loss must
+    fall by more than 0.1 and no kernel launch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.ft.resilience import host_metrics
+    from repro_torch.models import get_model
+    from repro_torch.train import AdamWConfig, make_train_step, optim
+    from repro_torch.train import init as opt_init
+    report = {"launcher": launcher_crash_restart()}
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    cfg = get_config("qwen3-4b")
+    api = get_model(cfg)
+    params = api.init(0, device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == TRAIN_PARAMS, f"train: {n_params} parameters, "
+          f"expected {TRAIN_PARAMS}")
+    ocfg = AdamWConfig(lr_peak=TRAIN_LR, total_steps=TRAIN_STEPS,
+                       warmup_steps=max(1, TRAIN_STEPS // 20))
+    opt = opt_init(ocfg, params)
+    step = make_train_step(api, ocfg, backend="chunked", remat=True)
+    b, s = TRAIN_BATCH
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in TokenPipeline(
+        vocab=cfg.vocab, batch=b, seq=s).batch_at(0).items()}
+    for kern in kernels:
+        kern.reset_launch_count()
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(met["loss"])
+    launches = {k.__name__.rsplit(".", 2)[-2]: k.launch_count()
+                for k in kernels}
+    check(not any(launches.values()), f"train: kernel launches {launches} "
+          f"in the train steps (the plain backends train)")
+    losses = torch.stack(losses).tolist()
+    check(all(math.isfinite(x) for x in losses), f"train: losses {losses}")
+    check(losses[-1] < losses[0] - 0.1, f"train: the loss went "
+          f"{losses[0]} -> {losses[-1]}, not down by more than 0.1")
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+
+    # a step's host syncs, and the driver's one read of its metrics
+    syncs = count_syncs(lambda: step(params, opt, batch))
+    # where a step's device time goes: one step under the profiler
+    busy, ops, largest = device_profile(lambda: step(params, opt, batch))
+    profile = {"busy_ms": busy, "ops": ops, "top": largest}
+    read_syncs = count_syncs(lambda: host_metrics(met))
+    # the optimizer alone, on synthetic bf16 grads (its time does not
+    # depend on their values)
+    grads = {n: torch.full_like(p, 1e-4) for n, p in params.named_parameters()}
+    opt_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        optim.update(ocfg, grads, opt, params)
+        torch.cuda.synchronize()
+        opt_s.append(time.perf_counter() - t0)
+    opt_ms = statistics.median(opt_s) * 1e3
+    del grads
+    flops = train_flops(cfg, b, s)
+    bound_ms = (flops["bf16"] / PEAK_BF16_OPS_PER_S
+                + flops["f32"] / PEAK_F32_OPS_PER_S) * 1e3
+    # AdamW's least bytes: bf16 param and grad read, param written, the
+    # float32 moments read and written
+    opt_bound_ms = n_params * 22 / PEAK_BYTES_PER_S * 1e3
+    report.update({
+        "arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+        "batch": [b, s], "steps": TRAIN_STEPS, "lr_peak": TRAIN_LR,
+        "warmup_steps": ocfg.warmup_steps, "losses": losses,
+        "step_ms_all": [x * 1e3 for x in step_s], "step_ms": step_ms,
+        "tok_s": b * s / step_ms * 1e3, "optimizer_ms_all":
+            [x * 1e3 for x in opt_s], "optimizer_ms": opt_ms,
+        "optimizer_share": opt_ms / step_ms, "peak_gib": peak / 2**30,
+        "step_syncs": syncs, "metrics_read_syncs": read_syncs,
+        "launches": launches, "flops": flops, "bound_ms": bound_ms,
+        "optimizer_bound_ms": opt_bound_ms, "profile": profile,
+        "card": card})
+    print(f"train qwen3-4b ({n_params} parameters, {cfg.dtype}, batch "
+          f"{b} x {s}, lr {TRAIN_LR} warmup {ocfg.warmup_steps}): loss "
+          f"{losses}; step {step_ms:.3f} ms (median of steps 2-"
+          f"{TRAIN_STEPS}, synchronised; all {report['step_ms_all']}), "
+          f"{report['tok_s']:.1f} tok/s; bound {bound_ms:.3f} ms "
+          f"({flops['bf16']} bf16 and {flops['f32']} float32 operations "
+          f"at peak); optimizer alone {opt_ms:.3f} ms "
+          f"({report['optimizer_share']:.3f} of a step; bound "
+          f"{opt_bound_ms:.3f} ms at 22 B a parameter); peak device memory "
+          f"{peak / 2**30:.3f} GiB; host syncs a step {syncs}, reading its "
+          f"metrics {read_syncs}; kernel launches {launches} ({card})")
+    print(f"one step under the profiler: {profile['busy_ms']} ms of device "
+          f"time in {profile['ops']} device ops; the largest by self device "
+          f"time (name, ms, calls): {profile['top']}")
+    del params, opt, batch, met
+    gc.collect()
+    torch.cuda.empty_cache()
     return report
 
 
@@ -2765,7 +2993,7 @@ def main() -> int:
             t0 = time.perf_counter()
             window_steps = int(window().steps.max())
             window_s = time.perf_counter() - t0
-            busy, ops = device_profile(window)
+            busy, ops, _ = device_profile(window)
             idle_share = None if busy is None else 1 - busy / 1e3 / window_s
             syncs = count_syncs(window)
             cpu_states, cpu_s = cpu_jobs[xl].get()
@@ -2840,6 +3068,9 @@ def main() -> int:
     with phase("16 vision-language serving at full width on CUDA "
                f"(qwen2-vl-72b, {VLM_LAYERS} of 80 layers)"):
         serve_vlm = vlm_phase(serve_launch, kernels)
+
+    with phase("17 training at full width on CUDA (qwen3-4b)"):
+        train = train_phase(kernels, card)
     print(f"sum of phases: {sum(PHASE_S.values()):.3f} s "
           f"({', '.join(f'{k} {v:.1f}' for k, v in PHASE_S.items())})")
 
@@ -2959,7 +3190,7 @@ def main() -> int:
         "fleet_stream": fleet_report, "advisor": advisor_report,
         "serve": serve, "serve_ssm": serve_ssm, "serve_moe": serve_moe,
         "serve_hybrid": serve_hybrid, "serve_whisper": serve_whisper,
-        "serve_vlm": serve_vlm, "phase_s": PHASE_S}))
+        "serve_vlm": serve_vlm, "train": train, "phase_s": PHASE_S}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, refuse_autograd
 
 HEAD_DIMS = (16, 32, 64, 128)
 _ENTRY = {torch.float32: "flash_attention_f32",
@@ -86,8 +86,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``HEAD_DIMS``, ``q_offset >= 0`` (the absolute position of query row 0
     under the causal mask).  Returns a contiguous [B, Sq, H, Dh] tensor in
     q's dtype.  bf16 tensors are read by TMA, which also needs every base
-    address and every stride 16-byte aligned.  Raises on anything else."""
+    address and every stride 16-byte aligned.  Raises on anything else,
+    and under autograd (``refuse_autograd``: the kernel has no backward)
+    before anything else."""
     global _launches
+    refuse_autograd("flash_attention_fwd", q, k, v)
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"flash_attention_fwd needs q, k, v on one CUDA "

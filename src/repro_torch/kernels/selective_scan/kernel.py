@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, refuse_autograd
 
 STATE_SIZES = (1, 2, 4, 8, 16, 32)   # N: a power of two that divides 32
 
@@ -117,7 +117,9 @@ def selective_scan_f32(a: torch.Tensor, b: torch.Tensor,
                        c: torch.Tensor) -> torch.Tensor:
     """y [B,S,D] with h_t = a_t h_{t-1} + b_t (h_0 = 0) and
     y_t[d] = sum_n h_t[d,n] c_t[n], for float32 contiguous CUDA tensors
-    a, b [B,S,D,N] and c [B,S,N].  Raises on anything else."""
+    a, b [B,S,D,N] and c [B,S,N].  Raises on anything else, and under
+    autograd (``refuse_autograd``) before anything else."""
+    refuse_autograd("selective_scan_f32", a, b, c)
     if a.dim() != 4:
         raise ValueError(f"selective_scan_f32: a has shape {tuple(a.shape)}, "
                          f"expected [B, S, D, N]")
@@ -142,7 +144,9 @@ def selective_scan_fused_f32(dt: torch.Tensor, x: torch.Tensor,
     and b_t = (dt * x) * bmat computed in the kernel, from h0.  dt, x
     [B,S,D], bmat, cmat [B,S,N], a_neg [D,N], h0 [B,D,N]: float32,
     contiguous, 16-byte aligned, on one CUDA device.  Raises on anything
-    else."""
+    else, and under autograd (``refuse_autograd``) before anything else."""
+    refuse_autograd("selective_scan_fused_f32", dt, x, bmat, cmat, a_neg,
+                    h0)
     if dt.dim() != 3 or a_neg.dim() != 2:
         raise ValueError(f"selective_scan_fused_f32: dt {tuple(dt.shape)}, "
                          f"a_neg {tuple(a_neg.shape)}: expected [B, S, D] "

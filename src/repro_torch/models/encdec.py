@@ -20,6 +20,7 @@ flash kernel for CUDA tensors and its plain version on the CPU.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -29,7 +30,7 @@ from ..device import resolve
 from . import attention as attn_mod
 from .layers import (MLP, Attention, Embed, ModelConfig, RMSNorm, Unembed,
                      embed, fill_normal, mlp, out_project, qkv_project,
-                     rmsnorm, unembed)
+                     remat_call, rmsnorm, unembed)
 from .transformer import _rope, _scatter_kv, fill_attention
 
 Cache = Dict[str, torch.Tensor]
@@ -99,18 +100,24 @@ def encdec_init(gen: torch.Generator, cfg: ModelConfig) -> EncDecLM:
     return model
 
 
+def _enc_layer(lp: EncLayer, x: torch.Tensor, cfg: ModelConfig, *,
+               backend: str) -> torch.Tensor:
+    h = rmsnorm(lp.ln1, x)
+    q, k, v = qkv_project(lp.attn, h, cfg)
+    q, k = _rope(cfg, q, k, 0)
+    o = attn_mod.attention(q, k, v, causal=False, backend=backend)
+    x = x + out_project(lp.attn, o)
+    return x + mlp(lp.mlp, rmsnorm(lp.ln2, x))
+
+
 def encode(params: EncDecLM, enc_embeds: torch.Tensor, cfg: ModelConfig,
-           *, backend: str = "chunked") -> torch.Tensor:
+           *, backend: str = "chunked", remat: bool = True) -> torch.Tensor:
     """enc_embeds [B, Se, D] -> the encoder's output [B, Se, D] in the
-    config's dtype."""
+    config's dtype; ``remat`` as ``encdec_apply``'s."""
     x = enc_embeds.to(cfg.dtype)
     for lp in params.enc_layers:
-        h = rmsnorm(lp.ln1, x)
-        q, k, v = qkv_project(lp.attn, h, cfg)
-        q, k = _rope(cfg, q, k, 0)
-        o = attn_mod.attention(q, k, v, causal=False, backend=backend)
-        x = x + out_project(lp.attn, o)
-        x = x + mlp(lp.mlp, rmsnorm(lp.ln2, x))
+        x = remat_call(functools.partial(_enc_layer, lp, cfg=cfg,
+                                         backend=backend), x, remat=remat)
     return rmsnorm(params.enc_norm, x)
 
 
@@ -144,14 +151,20 @@ def _dec_layer(lp: DecLayer, x: torch.Tensor, enc_out: torch.Tensor,
 
 def encdec_apply(params: EncDecLM, batch: Dict[str, torch.Tensor],
                  cfg: ModelConfig, *, backend: str = "chunked",
-                 logits: bool = True) -> Dict[str, torch.Tensor]:
+                 remat: bool = True, logits: bool = True
+                 ) -> Dict[str, torch.Tensor]:
     """batch: ``enc_embeds`` [B,Se,D] and ``tokens`` [B,Sd] -> ``hidden``
     [B,Sd,D], ``aux_loss`` (0) and, unless ``logits=False``, ``logits``
-    [B,Sd,V] float32."""
-    enc_out = encode(params, batch["enc_embeds"], cfg, backend=backend)
+    [B,Sd,V] float32.  Differentiable; ``remat`` rematerialises each
+    encoder and each decoder layer in the backward pass
+    (``layers.remat_call``)."""
+    enc_out = encode(params, batch["enc_embeds"], cfg, backend=backend,
+                     remat=remat)
     x = embed(params.embed, batch["tokens"])
     for lp in params.dec_layers:
-        x = _dec_layer(lp, x, enc_out, cfg, backend=backend)
+        x = remat_call(functools.partial(_dec_layer, lp, cfg=cfg,
+                                         backend=backend),
+                       x, enc_out, remat=remat)
     x = rmsnorm(params.final_norm, x)
     out = {"hidden": x, "aux_loss": torch.zeros((), dtype=torch.float32,
                                                 device=x.device)}

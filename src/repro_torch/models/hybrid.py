@@ -25,6 +25,7 @@ Decode attends over the cache by its one-token path either way.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -32,7 +33,7 @@ from torch import nn
 
 from ..device import resolve
 from .layers import (MLP, Attention, Embed, ModelConfig, RMSNorm, Unembed,
-                     embed, fill_normal, rmsnorm, unembed)
+                     embed, fill_normal, remat_call, rmsnorm, unembed)
 from .moe import MoE
 from .ssm import SCAN_BACKENDS, Mamba, fill_mamba, mamba_mix
 from .transformer import (_cached_layer, ffn, fill_attention, fill_ffn,
@@ -130,22 +131,33 @@ def _mamba_layer(layer: HybridLayer, x: torch.Tensor, cfg: ModelConfig,
     return x + m, aux, state
 
 
-@torch.no_grad()
+def _layer(layer: HybridLayer, x: torch.Tensor, cfg: ModelConfig,
+           backend: str):
+    """One layer of the full-sequence forward: (x_out, aux loss)."""
+    if hasattr(layer, "attn"):
+        return layer_apply(layer, x, cfg, backend=backend)
+    return _mamba_layer(layer, x, cfg, _zero_state(cfg, x),
+                        backend=backend)[:2]
+
+
 def hybrid_apply(params: HybridLM, batch: Dict[str, torch.Tensor],
-                 cfg: ModelConfig, *, backend: str = "kernel",
-                 logits: bool = True) -> Dict[str, torch.Tensor]:
+                 cfg: ModelConfig, *, backend: str = "chunked",
+                 remat: bool = True, logits: bool = True
+                 ) -> Dict[str, torch.Tensor]:
     """``batch["tokens"]`` [B,S] -> ``hidden`` [B,S,D], ``aux_loss`` (the
     MoE layers' sum over ``n_layers``) and, unless ``logits=False``,
-    ``logits`` [B,S,V] float32."""
+    ``logits`` [B,S,V] float32.  Differentiable through
+    ``backend="chunked"`` (the reference's default and its training path;
+    the CUDA kernels have no backward and raise under autograd).
+    ``remat`` rematerialises each layer, not each period, in the backward
+    pass (``layers.remat_call``), as the reference does: a whole period's
+    chunked scans would stay live otherwise."""
     _check_backend(backend)
     x = embed(params.embed, batch["tokens"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params.layers:
-        if hasattr(layer, "attn"):
-            x, a = layer_apply(layer, x, cfg, backend=backend)
-        else:
-            x, a, _ = _mamba_layer(layer, x, cfg, _zero_state(cfg, x),
-                                   backend=backend)
+        x, a = remat_call(functools.partial(_layer, layer, cfg=cfg,
+                                            backend=backend), x, remat=remat)
         aux = aux + a
     x = rmsnorm(params.final_norm, x)
     out = {"hidden": x, "aux_loss": aux / cfg.n_layers}

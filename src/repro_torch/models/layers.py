@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +149,19 @@ def fill_normal(p: torch.Tensor, gen: torch.Generator,
 # ---------------------------------------------------------------------------
 # apply functions
 # ---------------------------------------------------------------------------
+
+
+def remat_call(fn, *args, remat: bool):
+    """``fn(*args)``, a layer of a full-sequence forward.  With ``remat``
+    and grad mode on it runs under ``torch.utils.checkpoint``, which keeps
+    only the layer's inputs and runs the layer again in the backward pass
+    (the reference's ``jax.checkpoint`` of its scanned layer); otherwise,
+    or with grad mode off, it is a plain call.  The layers draw no random
+    numbers, so no RNG state is stashed."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -4,8 +4,8 @@ Port of ``src/repro/models/mamba_lm.py``.
 Mamba1 layers have no separate MLP: the block is the layer.  The
 reference scans over stacked [L, ...] layer params; the port keeps one
 ``SSMLayer`` per layer in an ``nn.ModuleList`` and loops over them (the
-reference's ``fsdp_params``, ``activation_hint`` and ``jax.checkpoint``
-only place or rematerialise data and have no counterpart here).
+reference's ``fsdp_params`` and ``activation_hint`` only place data and
+have no counterpart here; its ``jax.checkpoint`` is ``remat``).
 
 The decode cache keeps the reference's layout, ``{"h": [L,B,Di,N] f32,
 "conv": [L,B,K-1,Di] f32, "len": [B] int32}``; prefill and decode write
@@ -17,6 +17,7 @@ wherever the tensors are).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -24,7 +25,7 @@ from torch import nn
 
 from ..device import resolve
 from .layers import (Embed, ModelConfig, RMSNorm, Unembed, embed,
-                     fill_normal, rmsnorm, unembed)
+                     fill_normal, remat_call, rmsnorm, unembed)
 from .ssm import (Mamba, fill_mamba, mamba_apply, mamba_cache_init,
                   mamba_decode_step, mamba_mix)
 
@@ -69,16 +70,26 @@ def ssm_lm_init(gen: torch.Generator, cfg: ModelConfig) -> SSMLM:
     return model
 
 
-@torch.no_grad()
+def _layer(layer: SSMLayer, x: torch.Tensor, cfg: ModelConfig,
+           backend: str) -> torch.Tensor:
+    return x + mamba_apply(layer.mamba, rmsnorm(layer.ln, x), cfg,
+                           backend=backend)
+
+
 def ssm_lm_apply(params: SSMLM, batch: Dict[str, torch.Tensor],
-                 cfg: ModelConfig, *, backend: str = "kernel",
-                 logits: bool = True) -> Dict[str, torch.Tensor]:
+                 cfg: ModelConfig, *, backend: str = "chunked",
+                 remat: bool = True, logits: bool = True
+                 ) -> Dict[str, torch.Tensor]:
     """``batch["tokens"]`` [B,S] -> ``hidden`` [B,S,D], ``aux_loss`` (0)
-    and, unless ``logits=False``, ``logits`` [B,S,V] float32."""
+    and, unless ``logits=False``, ``logits`` [B,S,V] float32.
+    Differentiable through ``backend="chunked"`` (the reference's default
+    and its training path; the CUDA scan has no backward and raises under
+    autograd); ``remat`` rematerialises each layer in the backward pass
+    (``layers.remat_call``)."""
     x = embed(params.embed, batch["tokens"])
     for layer in params.layers:
-        x = x + mamba_apply(layer.mamba, rmsnorm(layer.ln, x), cfg,
-                            backend=backend)
+        x = remat_call(functools.partial(_layer, layer, cfg=cfg,
+                                         backend=backend), x, remat=remat)
     x = rmsnorm(params.final_norm, x)
     out = {"hidden": x,
            "aux_loss": torch.zeros((), dtype=torch.float32, device=x.device)}

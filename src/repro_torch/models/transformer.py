@@ -23,6 +23,7 @@ experts and ``moe_every == 1``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -32,7 +33,7 @@ from ..device import resolve
 from . import attention as attn_mod
 from .layers import (MLP, Attention, Embed, ModelConfig, RMSNorm, Unembed,
                      apply_mrope, apply_rope, embed, fill_normal, mlp,
-                     out_project, qkv_project, rmsnorm, unembed)
+                     out_project, qkv_project, remat_call, rmsnorm, unembed)
 from .moe import MoE, fill_moe, moe_apply
 
 Cache = Dict[str, torch.Tensor]
@@ -169,16 +170,20 @@ def layer_apply(p: Layer, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def lm_apply(params: DenseLM, batch: Dict[str, torch.Tensor],
-             cfg: ModelConfig, *,
-             backend: str = "chunked") -> Dict[str, torch.Tensor]:
+             cfg: ModelConfig, *, backend: str = "chunked",
+             remat: bool = True) -> Dict[str, torch.Tensor]:
     """``batch["tokens"]`` [B,S] or ``batch["embeds"]`` [B,S,D] (and
     ``pos3``) -> ``hidden`` [B,S,D], ``aux_loss`` (the layers' sum over
-    ``n_layers``; 0 for a dense model) and ``logits`` [B,S,V] float32."""
+    ``n_layers``; 0 for a dense model) and ``logits`` [B,S,V] float32.
+    Differentiable; ``remat`` rematerialises each layer in the backward
+    pass (``layers.remat_call``)."""
     x = _inputs(params, batch, cfg)
     pos3 = batch.get("pos3")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params.layers:
-        x, a = layer_apply(layer, x, cfg, backend=backend, pos3=pos3)
+        x, a = remat_call(functools.partial(layer_apply, layer, cfg=cfg,
+                                            backend=backend, pos3=pos3),
+                          x, remat=remat)
         aux = aux + a
     x = rmsnorm(params.final_norm, x)
     return {"hidden": x, "aux_loss": aux / cfg.n_layers,

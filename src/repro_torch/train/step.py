@@ -1,0 +1,89 @@
+"""Train and serve step builders: port of ``src/repro/train/step.py``.
+
+``make_train_step(api, opt_cfg)`` returns ``(params, opt_state, batch) ->
+(params, opt_state, metrics)``.  The reference's step is a pure function
+that the launcher jits; the port's updates the model and the optimizer
+state in place (``optim.update``) and returns them, so a caller that
+needs the starting state again keeps a copy (``copy.deepcopy``).  The
+metrics are tensors on the model's device: nothing in a step waits for
+the device.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from ..models.registry import ModelApi
+from . import optim
+from .loss import lm_loss
+
+Batch = Dict[str, torch.Tensor]
+
+
+def make_train_step(api: ModelApi, opt_cfg: optim.AdamWConfig, *,
+                    backend: str = "chunked", remat: bool = True,
+                    microbatch: int = 0) -> Callable:
+    """The data-parallel step on one device; with ``microbatch`` > 1 the
+    batch is split along its leading axis into that many microbatches
+    whose gradients are summed in float32 buffers and divided by their
+    count, as the reference sums into float32 zeros (a bf16 ``.grad``
+    accumulated across backward passes would round every partial sum to
+    bf16); the metrics are then the last microbatch's and the loss the
+    mean."""
+
+    def grads_of(params, batch: Batch) -> Tuple[torch.Tensor, Batch]:
+        out = api.apply(params, {k: v for k, v in batch.items()
+                                 if k != "labels"},
+                        backend=backend, remat=remat)
+        loss, met = lm_loss(out["logits"], batch["labels"],
+                            aux_loss=out.get("aux_loss", 0.0))
+        loss.backward()
+        return loss.detach(), {k: v.detach() for k, v in met.items()}
+
+    def grad_of(p: torch.nn.Parameter) -> torch.Tensor:
+        return p.grad if p.grad is not None else torch.zeros_like(p)
+
+    def step(params, opt_state, batch: Batch):
+        params.zero_grad(set_to_none=True)
+        if microbatch and microbatch > 1:
+            acc: Dict[str, torch.Tensor] = {}
+            loss = None
+            for i in range(microbatch):
+                mb = {k: v.reshape(microbatch, v.shape[0] // microbatch,
+                                   *v.shape[1:])[i]
+                      for k, v in batch.items()}
+                mb_loss, met = grads_of(params, mb)
+                loss = mb_loss if loss is None else loss + mb_loss
+                for name, p in params.named_parameters():
+                    if name in acc:
+                        acc[name].add_(grad_of(p))
+                    else:
+                        acc[name] = grad_of(p).float()
+                    p.grad = None
+            loss = loss / microbatch
+            grads = {name: g / microbatch for name, g in acc.items()}
+        else:
+            loss, met = grads_of(params, batch)
+            grads = {name: grad_of(p) for name, p in params.named_parameters()}
+        params, opt_state, omet = optim.update(opt_cfg, grads, opt_state,
+                                               params)
+        params.zero_grad(set_to_none=True)
+        return params, opt_state, {"loss": loss, **met, **omet}
+
+    return step
+
+
+def make_prefill_step(api: ModelApi, *, backend: str = "chunked") -> Callable:
+    def step(params, batch, cache):
+        return api.prefill(params, batch, cache, backend=backend)
+    return step
+
+
+def make_decode_step(api: ModelApi) -> Callable:
+    def step(params, tokens, cache, batch_extra=None):
+        if batch_extra is not None:
+            return api.decode_step(params, tokens, cache,
+                                   batch_extra=batch_extra)
+        return api.decode_step(params, tokens, cache)
+    return step

@@ -756,3 +756,135 @@ def test_ingest_job_on_cuda_equals_cpu(cuda):
                                        equal_nan=True, msg=name)
         else:
             assert torch.equal(a, b), name
+
+
+# ---------------------------------------------------------------------------
+# training (the plain backends; the kernels refuse autograd)
+# ---------------------------------------------------------------------------
+
+
+def _train_setup(dev, dtype=None, seed=0):
+    import copy
+    from repro_torch.data import TokenPipeline
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train import init as opt_init
+    cfg = get_smoke_config("qwen3-4b")
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    api = get_model(cfg)
+    params = api.init(seed, device="cpu").to(dev)
+    ocfg = AdamWConfig(total_steps=50, warmup_steps=2)
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=4, seq=16)
+
+    def batch_fn(s):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in pipe.batch_at(s).items()}
+    return (api, params, opt_init(ocfg, params),
+            make_train_step(api, ocfg), batch_fn, ocfg, copy.deepcopy)
+
+
+def test_train_step_on_cuda_is_bitwise_reproducible(cuda):
+    """Two steps from copies of one state on one batch: the same bits in
+    every parameter, moment and metric."""
+    _, params, opt, step, batch_fn, _, copy = _train_setup(cuda)
+    runs = []
+    for _ in range(2):
+        p, o = copy(params), copy(opt)
+        for s in range(2):
+            p, o, met = step(p, o, batch_fn(s))
+        runs.append((p, o, met))
+    (p1, o1, m1), (p2, o2, m2) = runs
+    for a, b in zip(p1.parameters(), p2.parameters()):
+        assert torch.equal(a, b)
+    for k in o1.mu:
+        assert torch.equal(o1.mu[k], o2.mu[k]) and \
+            torch.equal(o1.nu[k], o2.nu[k]), k
+    for k in m1:
+        assert torch.equal(m1[k], m2[k]), k
+
+
+def test_train_driver_crash_on_cuda_is_bitwise(cuda, tmp_path):
+    from repro_torch.ft import FailurePlan, TrainDriver
+    _, params, opt, step, batch_fn, _, copy = _train_setup(cuda)
+    start = copy((params, opt))
+    out = []
+    for name, crashes in (("plain", {}), ("crash", {3: "crash"})):
+        drv = TrainDriver(step_fn=step, batch_fn=batch_fn,
+                          ckpt_dir=str(tmp_path / name), ckpt_every=2,
+                          failure_plan=FailurePlan(at_steps=dict(crashes)))
+        p, _, info = drv.run(*copy(start), 6)
+        assert info["restarts"] == len(crashes)
+        out.append(p)
+    for a, b in zip(*(p.parameters() for p in out)):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+def test_train_step_on_cuda_matches_cpu(cuda):
+    """One float32 step on the card against the CPU's: the metrics within
+    rtol 1e-5 (the loss's sums run in other orders); the grads within
+    2e-5 of their leaf's largest |g|; and ``update`` of one set of grads on
+    the card against the CPU, rtol 1e-6 with an atol of 1e-6 of the leaf's
+    largest magnitude (the grad norm sums in another order)."""
+    from repro_torch.models.weights import leaf_map
+    from repro_torch.train import lm_loss, update
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        api, params, opt, step, batch_fn, ocfg, copy = _train_setup(
+            dev, torch.float32)
+        batch = batch_fn(0)
+        p0 = copy(params)
+        out = api.apply(p0, {"tokens": batch["tokens"]})
+        lm_loss(out["logits"], batch["labels"],
+                aux_loss=out["aux_loss"])[0].backward()
+        grads = {n: p.grad.cpu() for n, p in p0.named_parameters()}
+        _, _, met = step(params, opt, batch)
+        runs[dev.type] = (api, grads, met, ocfg, copy)
+    for k, v in runs["cpu"][2].items():
+        torch.testing.assert_close(runs["cuda"][2][k].cpu(), v, rtol=1e-5,
+                                   atol=0, msg=k)
+    for n, g in runs["cpu"][1].items():
+        torch.testing.assert_close(runs["cuda"][1][n], g, rtol=2e-5,
+                                   atol=2e-5 * float(g.abs().max()), msg=n)
+    api, grads, _, ocfg, copy = runs["cpu"]
+    _, params, opt, _, _, _, _ = _train_setup("cpu", torch.float32)
+    on = {}
+    for dev in (cuda, torch.device("cpu")):
+        p, o = copy(params).to(dev), copy(opt)
+        o = type(o)(o.step.to(dev), *({k: v.to(dev) for k, v in d.items()}
+                                      for d in (o.mu, o.nu, o.err)))
+        update(ocfg, {n: g.to(dev) for n, g in grads.items()}, o, p)
+        on[dev.type] = (p, o)
+    for key, leaf in leaf_map(on["cpu"][0], api.cfg).items():
+        for name, a in zip(leaf.names, leaf.params):
+            a, b = a.detach(), on["cuda"][0].get_parameter(name).detach()
+            torch.testing.assert_close(b.cpu(), a, rtol=1e-6,
+                                       atol=1e-6 * float(a.abs().max()),
+                                       msg=name)
+
+
+def test_kernels_refuse_autograd_on_cuda(cuda):
+    """On the card the kernels' outputs would have no ``grad_fn``: each
+    entry raises under autograd, and ``apply(backend="kernel")`` with
+    weights that require grad raises instead of cutting the graph."""
+    q = torch.rand(1, 8, 4, 16, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa_kernel.flash_attention_fwd(q, q.detach(), q.detach())
+    with pytest.raises(RuntimeError, match="no backward"):
+        scan_kernel.selective_scan_f32(
+            torch.rand(1, 4, 8, 4, device=cuda, requires_grad=True),
+            torch.rand(1, 4, 8, 4, device=cuda),
+            torch.rand(1, 4, 4, device=cuda))
+    a = torch.rand(8, 4, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        scan_kernel.selective_scan_fused_f32(
+            *(torch.rand(sh, device=cuda) for sh in
+              ((1, 4, 8), (1, 4, 8), (1, 4, 4), (1, 4, 4))), a,
+            torch.zeros(1, 8, 4, device=cuda))
+    for arch in ("qwen3-4b", "falcon-mamba-7b"):
+        api = get_model(get_smoke_config(arch))
+        params = api.init(0, device=cuda)
+        toks = torch.zeros(1, 8, dtype=torch.int32, device=cuda)
+        with pytest.raises(RuntimeError, match="no backward"):
+            api.apply(params, {"tokens": toks}, backend="kernel")
+        with torch.no_grad():
+            api.apply(params, {"tokens": toks}, backend="kernel")

@@ -136,7 +136,8 @@ def test_ssm_lm_apply(pair):
     toks = _tokens(2, 2, 40, rapi.cfg.vocab)
     jitted, eager = _reference(
         lambda: rapi.apply(rparams, {"tokens": jnp.asarray(toks)}))
-    got = papi.apply(pparams, {"tokens": torch.from_numpy(toks)})
+    got = papi.apply(pparams, {"tokens": torch.from_numpy(toks)},
+                     backend="kernel")
     assert got["logits"].dtype == torch.float32
     assert got["hidden"].dtype == papi.cfg.dtype
     assert float(got["aux_loss"]) == 0.0
