@@ -126,7 +126,8 @@ Phases, each printed with its wall time:
    the makespan, installs, evictions, reinstalls, queue wait and
    migrations (and, for (c), clone launches and wins, wasted clone work
    and degraded time).  The CPU runs that phase 10 is held against start
-   with the script in two worker processes and overlap phases 2-9;
+   with the script in two worker processes and overlap phases 2-9, after
+   the xl CPU runs of phases 5 and 9(c);
 11. the fleet engine and the streaming ring on CUDA, each sub-phase with
    every kernel's launch count reset just before and read just after and
    the scenario built anew (one ``apsp_f32`` launch each): (a)
@@ -232,6 +233,24 @@ Phases, each printed with its wall time:
    tokens/s beside the reckoned bound, the optimizer alone, peak device
    memory, host syncs a step, and one step under the profiler (device
    time, device ops, the largest kernels).  No checkpoint at full width.
+
+18. the one-device tooling: (a) the op budget on the card:
+   ``tools/torchcheck.py --device cuda --quick`` (paper-fabric's serial
+   loop, fleet chunk of the first static signature and stream refill, 32
+   events each) and leaf-spine-xl's serial loop, whose aten op counts must
+   equal the committed CPU ledger ``experiments/TORCH_OP_BUDGET.json``
+   (host reads and host copies left out: a CPU run dispatches no host
+   copy), whose host syncs as ``count_syncs`` reports them must equal the
+   dispatched ops after which the host waits (``OpRecord.host_sync``), with
+   one ``apsp_f32`` launch for each scenario build; xl's aten ops and host
+   syncs an event; (b) the dry run against the real runs:
+   ``launch/dryrun.lower_cell`` on fake tensors for qwen3-4b's train step at
+   phase 17(b)'s 4 x 512 tokens, its predicted peak within 10 % of the
+   ``max_memory_allocated`` phase 17(b) measured, its compute and memory
+   terms, bound, useful ratio and ``mfu`` beside the measured step; and
+   for phase 7's 2048-token prefill (the plain attention's, the larger
+   transient, into a cache of 4096 positions) the predicted peak against
+   the parameters plus what the prefill added to phase 7's memory.
 
 Then one JSON line with every kernel's numbers and design, the card's
 name and power limit, and last the line ``{"ok": true, "device":
@@ -991,6 +1010,42 @@ def phase10_scenario(kind: str):
         lambda topo: random_degradation(topo, host_rate=2e-3,
                                         mean_factor=0.3, mttr=400.0,
                                         horizon=2000.0, seed=1)))
+
+
+def profile_policies():
+    """Phase 5's profile policy: SDN, least-used, job_concurrency=4."""
+    from repro_torch.api import PolicyConfig
+    return [("profile", PolicyConfig(job_concurrency=4))]
+
+
+def xl_failure_policies():
+    """Phase 9(c)'s lanes: SDN and legacy at job_concurrency=4."""
+    from repro_torch.api import PolicyConfig
+    from repro_torch.core import ROUTE_LEGACY
+    return [("sdn", PolicyConfig(job_concurrency=4)),
+            ("legacy", PolicyConfig(routing=ROUTE_LEGACY,
+                                    job_concurrency=4))]
+
+
+def cpu_reference5(kind: str):
+    """The CPU runs of leaf-spine-xl that phase 5 (``xl-main``, the profile
+    policy) and phase 9(c) (``xl-s0``, the seed-0 outage trace) hold their
+    CUDA runs against, in a worker process started with the script: the
+    final states and the seconds."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    torch.set_num_threads(2)
+    from repro_torch.api import Experiment
+    from repro_torch.scenarios.failures import failure_injector
+    t0 = time.perf_counter()
+    if kind == "xl-main":
+        exp = Experiment("leaf-spine-xl", profile_policies(), device="cpu")
+    else:
+        name, kw = XL_FAILURES[1]
+        exp = Experiment("leaf-spine-xl", xl_failure_policies(),
+                         device="cpu",
+                         failures=[(name, failure_injector(**kw))])
+    return exp.run().states, time.perf_counter() - t0
 
 
 def cpu_reference(kind: str):
@@ -2122,6 +2177,161 @@ def train_phase(kernels, card: str) -> dict:
     return report
 
 
+def op_budget_phase() -> dict:
+    """Phase 18(a): ``torchcheck --device cuda --quick`` and leaf-spine-xl's
+    serial loop on the card, held to the committed CPU ledger (counts
+    equal, host reads and host copies left out), each with its host syncs
+    as ``count_syncs`` reports them against the dispatched ops after which
+    the host waits, and one ``apsp_f32`` launch a scenario build."""
+    import importlib.util
+    from repro_torch.analysis import analyze, device_diff, load_ledger
+    from repro_torch.analysis import programs
+    from repro_torch.analysis.op_walk import OpRecorder
+    from repro_torch.kernels.tropical_apsp import kernel as minplus_kernel
+    spec = importlib.util.spec_from_file_location(
+        "torchcheck", os.path.join(ROOT, "tools", "torchcheck.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    ledger = load_ledger(os.path.join(ROOT, tool.DEFAULT_BASELINE))
+    allow = ledger["allowlist"]
+    report = {"ledger_device": ledger["device"],
+              "ledger_torch": ledger["torch"]}
+
+    # the scenario builds, each with its route table's one APSP launch
+    programs.cache_clear()
+    builds = {}
+    for name in ("paper-fabric", "leaf-spine-xl"):
+        t0 = time.perf_counter()
+        _, made = counted(minplus_kernel,
+                          lambda: programs.scenario_consts(name, "cuda"))
+        check(made == {"apsp_f32": 1}, f"op budget: building {name} "
+              f"launched {made}, expected one apsp_f32")
+        builds[name] = {"launches": made, "s": time.perf_counter() - t0}
+    report["builds"] = builds
+
+    def synced(fn):
+        """(fn's result, syncs count_syncs reports, dispatched host
+        syncs) over the same run."""
+        rec, box = OpRecorder(), {}
+
+        def go():
+            with rec:
+                box["out"] = fn()
+        reported = count_syncs(go)
+        return box["out"], reported, sum(op.host_sync for op in rec.ops)
+
+    args = tool.parse_args(["--device", "cuda", "--quick", "--quiet",
+                            "--no-ast"])
+    t0 = time.perf_counter()
+    rep, reported, dispatched = synced(lambda: tool.run(args))
+    quick_s = time.perf_counter() - t0
+    for note in rep["notes"]:
+        print(f"torchcheck: {note}")
+    check(not rep["errors"], "torchcheck --device cuda --quick: "
+          + "; ".join(f.render() for f in rep["errors"]))
+    check(reported == dispatched, f"torchcheck --quick on CUDA: "
+          f"count_syncs {reported} != dispatched host syncs {dispatched}")
+    report["quick"] = {"programs": rep["programs"], "loop_syncs":
+                       rep["syncs"], "syncs_reported": reported,
+                       "syncs_dispatched": dispatched,
+                       "allowlisted": sorted({f.key for f in
+                                              rep["waived"]}),
+                       "s": quick_s}
+    print(f"torchcheck --device cuda --quick: {len(rep['programs'])} "
+          f"programs equal the {ledger['device']} ledger, "
+          f"{len(rep['waived'])} allowlisted findings; host syncs "
+          f"{reported} reported = {dispatched} dispatched "
+          f"({quick_s:.3f} s)")
+
+    t0 = time.perf_counter()
+    trace, reported, dispatched = synced(
+        lambda: programs.trace_serial("leaf-spine-xl", "cuda"))
+    xl_s = time.perf_counter() - t0
+    findings, rows = analyze([trace])
+    findings = [f for f in findings if f.key not in allow]
+    findings += device_diff(rows, ledger)
+    check(not findings, "leaf-spine-xl/serial on CUDA: "
+          + "; ".join(f.render() for f in findings))
+    check(reported == dispatched, f"leaf-spine-xl/serial on CUDA: "
+          f"count_syncs {reported} != dispatched host syncs {dispatched}")
+    row = rows[trace.key]
+    loop_syncs = tool.host_syncs(trace)
+    report["xl_serial"] = {
+        **row, "syncs_reported": reported, "syncs_dispatched": dispatched,
+        "loop_syncs": loop_syncs, "ops_per_event": row["ops"] / row["events"],
+        "syncs_per_event": loop_syncs / row["events"], "s": xl_s}
+    print(f"leaf-spine-xl/serial on CUDA: {row['events']} events equal the "
+          f"ledger; {row['ops']} aten ops ({row['ops'] / row['events']:.3f} "
+          f"an event), {loop_syncs} host syncs in the loop "
+          f"({loop_syncs / row['events']:.3f} an event; "
+          f"{row['loop']['_local_scalar_dense']} scalar reads, "
+          f"{row['host_copies']} host copies); count_syncs {reported} = "
+          f"{dispatched} dispatched over the call ({xl_s:.3f} s)")
+    return report
+
+
+def dryrun_phase(train: dict, serve: dict, card: str) -> dict:
+    """Phase 18(b): the dry run's predictions for phase 17(b)'s train step
+    and phase 7's long prefill against what those phases measured."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline.hw import H100
+    b, s = TRAIN_BATCH
+    t0 = time.perf_counter()
+    _, info = dryrun.lower_cell(
+        "qwen3-4b", "train_4k", extrapolate=False,
+        shape_override=ShapeSpec(f"train_{b}x{s}", s, b, "train"))
+    train_s = time.perf_counter() - t0
+    r = info["roofline"]
+    pred, meas = info["peak_gib"], train["peak_gib"]
+    step_s = train["step_ms"] / 1e3
+    mfu = r["model_flops"] / (step_s * H100.peak_flops_bf16)
+    print(f"dry run, qwen3-4b train step at {b} x {s} (chunked, remat, "
+          f"AdamW; {info['t_count_s']} s on fake tensors): predicted peak "
+          f"{pred:.3f} GiB against {meas:.3f} GiB measured in phase 17(b) "
+          f"({(pred - meas) / meas:+.4f}); compute {r['compute_s'] * 1e3:.3f}"
+          f" ms ({info['counts']['flops']:.6g} FLOPs of products), memory "
+          f"{r['memory_s'] * 1e3:.3f} ms ({info['counts']['bytes']:.6g} "
+          f"bytes op by op), bound {info['step_bound_s'] * 1e3:.3f} ms "
+          f"({r['dominant']}), useful ratio {r['useful_ratio']:.4f}, mfu at "
+          f"the bound {r['mfu_bound']:.4f}; the measured step "
+          f"{train['step_ms']:.3f} ms, mfu {mfu:.4f} ({card})")
+    check(abs(pred - meas) <= 0.10 * meas, f"dry run: the train step's "
+          f"predicted peak {pred:.3f} GiB is not within 10 % of the "
+          f"measured {meas:.3f} GiB")
+
+    t0 = time.perf_counter()
+    _, pinfo = dryrun.lower_cell(
+        "qwen3-4b", "prefill_32k", backend="naive", extrapolate=False,
+        cache_len=2 * LONG_PROMPT,
+        shape_override=ShapeSpec(f"prefill_{LONG_PROMPT}", LONG_PROMPT, 1,
+                                 "prefill"))
+    prefill_s = time.perf_counter() - t0
+    p_pred = pinfo["peak_gib"]
+    p_meas = serve["params_gib"] + serve["long_prefill_added_gib"]
+    pr = pinfo["roofline"]
+    print(f"dry run, qwen3-4b prefill of {LONG_PROMPT} tokens (plain "
+          f"attention, a cache of {2 * LONG_PROMPT}; "
+          f"{pinfo['t_count_s']} s): predicted peak {p_pred:.3f} GiB against "
+          f"{p_meas:.3f} GiB measured (the {serve['params_gib']:.3f} GiB of "
+          f"parameters + {serve['long_prefill_added_gib']:.3f} GiB the "
+          f"phase 7 prefills added; {(p_pred - p_meas) / p_meas:+.4f}); "
+          f"transient predicted {p_pred - serve['params_gib']:.3f} GiB; "
+          f"compute {pr['compute_s'] * 1e3:.3f} ms, memory "
+          f"{pr['memory_s'] * 1e3:.3f} ms, useful ratio "
+          f"{pr['useful_ratio']:.4f}; prefill measured "
+          f"{serve['prefill_ms']} ms ({card})")
+    check(abs(p_pred - p_meas) <= 0.10 * p_meas, f"dry run: the prefill's "
+          f"predicted peak {p_pred:.3f} GiB is not within 10 % of the "
+          f"measured {p_meas:.3f} GiB")
+    return {"train": {**info, "measured_peak_gib": meas,
+                      "measured_step_ms": train["step_ms"],
+                      "measured_mfu": mfu, "count_s": train_s},
+            "prefill": {**pinfo, "measured_peak_gib": p_meas,
+                        "count_s": prefill_s},
+            "card": card}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2155,12 +2365,15 @@ def main() -> int:
     from repro_torch.scenarios.failures import failure_injector
     from repro_torch.scenarios.sweep import slice_packed
 
-    # phase 10's CPU runs, which its CUDA runs are held against, start
-    # now in two worker processes and overlap phases 2-9 (the xl
-    # controller cell's CPU run alone takes minutes)
+    # the xl CPU runs of phases 5 and 9(c), then phase 10's, which their
+    # CUDA runs are held against, start now in two worker processes and
+    # overlap phases 2-9 (the xl controller cell's CPU run alone takes
+    # minutes)
     CPU_POOL.append(multiprocessing.get_context("spawn").Pool(2))
-    cpu_jobs = {kind: CPU_POOL[0].apply_async(cpu_reference, (kind,))
-                for kind in (*PHASE10_XL, *PHASE10_GRIDS)}
+    cpu_jobs = {kind: CPU_POOL[0].apply_async(cpu_reference5, (kind,))
+                for kind in ("xl-main", "xl-s0")}
+    cpu_jobs.update({kind: CPU_POOL[0].apply_async(cpu_reference, (kind,))
+                     for kind in (*PHASE10_XL, *PHASE10_GRIDS)})
     cpu_jobs.update({kind: CPU_POOL[0].apply_async(cpu_reference11, (kind,))
                      for kind in PHASE11_CPU})
     cpu_jobs.update({kind: CPU_POOL[0].apply_async(cpu_reference12, (kind,))
@@ -2412,7 +2625,7 @@ def main() -> int:
         print(f"water-fill lanes, CUDA vs CPU: ints equal {ints_equal}, "
               f"max float rel diff {rel}")
 
-    profile = [("profile", PolicyConfig(job_concurrency=4))]
+    profile = profile_policies()
     with phase("5 main path at full size on CUDA"):
         rates, idle = {}, {}
         for name in PROFILE_STEPS:
@@ -2459,9 +2672,15 @@ def main() -> int:
             print(f"{name}: first {window_steps} steps: device busy {busy} "
                   f"ms of {window_s * 1e3:.3f} ms wall, idle share "
                   f"{idle[name]}")
-            cpu = Experiment(name, profile, device="cpu").run()
-            states_match(res.states, cpu.states, name)
-            print(f"{name}: final state equals the CPU run")
+            if main_path:
+                cpu_states, cpu_s = cpu_jobs["xl-main"].get()
+                where = f" ({cpu_s:.1f} s in a worker)"
+            else:
+                cpu_states = Experiment(name, profile,
+                                        device="cpu").run().states
+                where = ""
+            states_match(res.states, cpu_states, name)
+            print(f"{name}: final state equals the CPU run{where}")
             if main_path:
                 healthy_xl = res.state(0, 0)
         check(mp_launches == {"minplus_f32": 0, "apsp_f32": 1}
@@ -2587,12 +2806,23 @@ def main() -> int:
               f"call (a bf16 product would take "
               f"{serve['unembed_bf16_ms']:.6f} ms)")
 
-        # one long prompt: the kernel against the plain attention
+        # one long prompt: the kernel against the plain attention; the
+        # bytes it adds to what is live (phase 18(b) predicts them)
+        torch.cuda.synchronize()
+        phase7_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         serve.update(long_prefill(loop, "naive", LOGIT_TOL))
-        serve["long_prefill_peak_gib"] = \
-            torch.cuda.max_memory_allocated() / 2**30
+        added = torch.cuda.max_memory_allocated() - base
+        serve["long_prefill_peak_gib"] = max(
+            phase7_peak, torch.cuda.max_memory_allocated()) / 2**30
+        serve["long_prefill_added_gib"] = added / 2**30
+        serve["params_gib"] = sum(p.numel() * p.element_size()
+                                  for p in loop.params.parameters()) / 2**30
         print(f"peak device memory over phase 7: "
-              f"{serve['long_prefill_peak_gib']:.3f} GiB")
+              f"{serve['long_prefill_peak_gib']:.3f} GiB; the long "
+              f"prefills added {serve['long_prefill_added_gib']:.3f} GiB "
+              f"to the {base / 2**30:.3f} GiB live before them")
         del loop, served, params
 
     with phase("8 Mamba serving at full width on CUDA (falcon-mamba-7b)"):
@@ -2813,9 +3043,7 @@ def main() -> int:
               f"{grid.states.steps.tolist()}")
 
         # (c) the slice's path at full size: leaf-spine-xl x 3 outage traces
-        xl_pols = [("sdn", PolicyConfig(job_concurrency=4)),
-                   ("legacy", PolicyConfig(routing=ROUTE_LEGACY,
-                                           job_concurrency=4))]
+        xl_pols = xl_failure_policies()
         traces = [(n, failure_injector(**kw)) for n, kw in XL_FAILURES]
         consts_cache_clear()      # phase 5 built xl: build its table anew
         torch.cuda.synchronize()
@@ -2848,16 +3076,15 @@ def main() -> int:
               f"xl r0: {int(r0.steps)} steps")
         print(f"xl r0 SDN lane equals phase 5's healthy run "
               f"({int(r0.steps)} steps): bitwise {r0_bitwise}")
-        cpu_s0 = Experiment("leaf-spine-xl", xl_pols, device="cpu",
-                            failures=[traces[1]]).run()
+        cpu_s0, cpu_s0_s = cpu_jobs["xl-s0"].get()
         states_match(type(res.states)(*(a[1:2] for a in res.states)),
-                     cpu_s0.states,
-                     "xl r5e-5/s0 against its CPU run")
+                     cpu_s0, f"xl r5e-5/s0 against its CPU run "
+                     f"({cpu_s0_s:.1f} s in a worker)")
         rows = res.rows()
         for row in rows:
             stalled_ok = not row["stalled"] or (
                 row["scenario"].endswith("s0") and bool(
-                    cpu_s0.states.stalled[0, res.policy_names.index(
+                    cpu_s0.stalled[0, res.policy_names.index(
                         row["policy"])]))
             check(stalled_ok, f"xl {row['scenario']}/{row['policy']} "
                               f"stalled")
@@ -3071,6 +3298,10 @@ def main() -> int:
 
     with phase("17 training at full width on CUDA (qwen3-4b)"):
         train = train_phase(kernels, card)
+
+    with phase("18 the op budget and the dry run on CUDA"):
+        tooling = {"op_budget": op_budget_phase(),
+                   "dryrun": dryrun_phase(train, serve, card)}
     print(f"sum of phases: {sum(PHASE_S.values()):.3f} s "
           f"({', '.join(f'{k} {v:.1f}' for k, v in PHASE_S.items())})")
 
@@ -3107,6 +3338,9 @@ def main() -> int:
                  "fleet_stream_launches": {
                      k: v["apsp_launches"] for k, v in fleet_report.items()
                      if isinstance(v, dict)},
+                 "op_budget_launches": {
+                     k: v["launches"]["apsp_f32"] for k, v in
+                     tooling["op_budget"]["builds"].items()},
                  **xl_apsp},
         "fat_tree_32": {"entry": "apsp_f32", "squarings": ft_ran,
                         "squarings_needed": ft_need,
@@ -3190,7 +3424,8 @@ def main() -> int:
         "fleet_stream": fleet_report, "advisor": advisor_report,
         "serve": serve, "serve_ssm": serve_ssm, "serve_moe": serve_moe,
         "serve_hybrid": serve_hybrid, "serve_whisper": serve_whisper,
-        "serve_vlm": serve_vlm, "train": train, "phase_s": PHASE_S}))
+        "serve_vlm": serve_vlm, "train": train, "tooling": tooling,
+        "phase_s": PHASE_S}, default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -68,7 +68,9 @@ class Results:
                 slice_packed(c, si),
                 SimState(*(leaf[si] for leaf in self.states)))
                 for si in range(self.n_scenarios)]
+            # torchcheck: disable=item-call: results to numpy, after the run
             valid = c.job_valid.cpu().numpy()[:, None, :]   # [S, 1, N_J]
+            # torchcheck: disable=item-call: results to numpy, after the run
             self._jr = {k: np.where(valid, np.stack(
                 [rep[k].cpu().numpy() for rep in per]), np.nan)
                 for k in per[0]}
@@ -77,6 +79,7 @@ class Results:
     def energy_report(self) -> Dict[str, np.ndarray]:
         """Energy + makespan, every array ``[S, P]``."""
         if self._er is None:
+            # torchcheck: disable=item-call: results to numpy, after the run
             self._er = {k: v.cpu().numpy()
                         for k, v in energy_report(self.states).items()}
         return self._er
@@ -87,6 +90,7 @@ class Results:
         jr = {k: v[scenario, policy] for k, v in self.job_report().items()}
         er = {k: v[scenario, policy] for k, v in self.energy_report().items()}
         s = self.state(scenario, policy)
+        # torchcheck: disable=item-call: results to numpy, after the run
         return {**jr, **er,
                 "stalled": s.stalled.cpu().numpy(),
                 "steps": s.steps.cpu().numpy()}
@@ -100,11 +104,13 @@ class Results:
         features are not ported yet)."""
         jr = self.job_report()
         er = self.energy_report()
+        # torchcheck: disable=item-call: results to numpy, after the run
         st = {k: getattr(self.states, k).cpu().numpy() for k in (
             "stalled", "steps", "ctrl_installs", "ctrl_evictions",
             "ctrl_reinstalls", "ctrl_queue_wait", "spec_launches",
             "spec_wins", "spec_wasted", "degraded_time", "ctrl_failovers",
             "ctrl_failover_park")}
+        # torchcheck: disable=item-call: results to numpy, after the run
         migrations = self.states.vm_migrations.cpu().numpy().sum(-1)
         out = []
         for si, sn in enumerate(self.scenario_names):

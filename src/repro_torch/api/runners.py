@@ -4,10 +4,14 @@ every entry point (DESIGN.md §6).
 Port of ``src/repro/api/runners.py``.  The reference caches a jitted
 program per key; here a runner is the engine loop built by
 ``make_packed_simulator`` for that ``SimMeta`` plus the batch kind's
-layout, kept under the same LRU bound.  The reference's ``trace_count``,
-``note_trace``, ``traced_jaxpr`` and ``donation_argnums`` describe JAX
-tracing and buffer donation and have no counterpart in PyTorch (ROADMAP
-queue 1 item 12).
+layout, kept under the same LRU bound.  ``build_count`` counts the
+engine programs built (the reference's ``trace_count`` counts its
+traces): a second run with an equal ``SimMeta`` builds nothing.
+``traced_ops`` (the reference's ``traced_jaxpr``) runs a program's first
+events under the op recorder of ``analysis.op_walk`` for torchcheck,
+touching neither the cache nor the counter.  The reference's
+``donation_argnums`` has no counterpart: PyTorch has no buffer donation
+(the engine's loop advances its carry without keeping a second copy).
 
 Batch kinds (all funnel into ``make_packed_simulator``'s ``run(consts,
 pol)``, whose policies are lanes of one loop):
@@ -59,7 +63,8 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
-from ..core.engine import (EngineConsts, SimState, lane_policies,
+from ..core.engine import (EngineConsts, SimState, _advance, _carry,
+                           _make_aux, init_state_from_consts, lane_policies,
                            make_packed_simulator)
 from ..core.simmeta import SimMeta
 from ..scenarios.sweep import slice_packed
@@ -70,6 +75,19 @@ KINDS = ("single", "policy_batch", "zipped", "grid")
 # fresh SimMeta per candidate schedule
 CACHE_MAX = 64
 _CACHE: "OrderedDict[Tuple, Callable]" = OrderedDict()
+_BUILD_COUNT = 0
+
+
+def build_count() -> int:
+    """Engine programs built since import (or the last ``cache_clear``)."""
+    return _BUILD_COUNT
+
+
+def note_build() -> None:
+    """Bump the build counter: called by each cached program's builder,
+    so cache hits don't count."""
+    global _BUILD_COUNT
+    _BUILD_COUNT += 1
 
 
 def cache_size() -> int:
@@ -77,8 +95,10 @@ def cache_size() -> int:
 
 
 def cache_clear() -> None:
-    """Drop every cached runner."""
+    """Drop every cached runner and reset the build counter."""
+    global _BUILD_COUNT
     _CACHE.clear()
+    _BUILD_COUNT = 0
 
 
 def get_cached_program(key: Tuple, builder: Callable[[], Callable]
@@ -102,11 +122,37 @@ def get_runner(meta: SimMeta, kind: str) -> Callable:
     return get_cached_program((meta, kind), lambda: _build(meta, kind))
 
 
+def traced_ops(meta: SimMeta, consts: EngineConsts, pols, events: int):
+    """Static-analysis hook: the engine loop exactly as ``get_runner``
+    builds it for "single" (or "policy_batch", when ``pols`` holds [P]
+    values: one loop whose lanes are the policies), its first ``events``
+    events run under an ``analysis.op_walk.OpRecorder``.  Returns ``(ops,
+    carry, events run)`` where ``carry = (s, cache, nc, done)`` is the
+    loop's carry after them.  Neither the program cache nor the build
+    counter is touched.  The "zipped" and "grid" kinds run this loop once
+    per replica or scenario."""
+    from ..analysis.op_walk import OpRecorder
+    pol = lane_policies(pols, device=consts.link_bw.device)
+    width = pol["seed"].shape[0]
+    # torchcheck: disable=item-call: the policies on the host, once a run
+    ph = {k: v.cpu().numpy() for k, v in pol.items()}
+    s = init_state_from_consts(consts, meta.n_switches, meta.ctrl_slots,
+                               meta.spec_slots, width)
+    aux = _make_aux(consts, meta, pol, ph)
+    carry = _carry(consts, meta, s)
+    rec = OpRecorder()
+    with rec:
+        carry = _advance(consts, meta, pol, ph, aux, carry, events)
+    # torchcheck: disable=tracer-cast: after the recorded events
+    return rec.ops, carry, min(events, int(carry[0].steps.max()))
+
+
 def _stack(states: List[SimState]) -> SimState:
     return SimState(*(torch.stack(leaves) for leaves in zip(*states)))
 
 
 def _build(meta: SimMeta, kind: str) -> Callable:
+    note_build()
     base = make_packed_simulator(meta)
 
     def lanes(consts: EngineConsts, pols: Dict[str, torch.Tensor]

@@ -93,6 +93,7 @@ class StreamResults:
         windows / empty classes are NaN."""
         j = self.jobs[policy]
         w = self.window_s
+        # torchcheck: disable=tracer-cast: numpy on the host
         t_hi = max(self.horizon,
                    float(j["t_done"].max()) if j["t_done"].size else 0.0)
         n_w = max(1, int(math.ceil(t_hi / w)))
@@ -137,6 +138,7 @@ class StreamResults:
         j = self.jobs[policy]
         sel = j["t_done"] >= self.warmup
         soj = j["sojourn"][sel]
+        # torchcheck: disable=tracer-cast: numpy on the host
         span = (float(j["t_done"].max()) - self.warmup
                 if sel.any() else float("nan"))
         per_class = {}
@@ -149,6 +151,7 @@ class StreamResults:
                                if cs.size else float("nan")),
             }
         smp = self.samples[policy]
+        # torchcheck: disable=tracer-cast: numpy on the host
         return {
             "policy": self.policy_names[policy],
             "jobs_done": int(sel.sum()),
@@ -187,10 +190,12 @@ class StreamResults:
 
 
 def _stream_chunk(meta: SimMeta, sig, chunk_steps: int, width: int):
+    def build():
+        runners.note_build()
+        return make_fleet_chunk(meta, dict(zip(STATIC_FIELDS, sig)),
+                                chunk_steps, lane_fields=STREAM_FIELDS)
     return runners.get_cached_program(
-        ("stream", meta, sig, chunk_steps, width),
-        lambda: make_fleet_chunk(meta, dict(zip(STATIC_FIELDS, sig)),
-                                 chunk_steps, lane_fields=STREAM_FIELDS))
+        ("stream", meta, sig, chunk_steps, width), build)
 
 
 def _stream_refill(meta: SimMeta, width: int):
@@ -247,6 +252,7 @@ def run_stream(exp, arrivals, horizon: float, *, warmup: float = 0.0,
     dev = exp.device
     consts0, meta = make_consts(rs, dev)
 
+    # torchcheck: disable=item-call: the policies on the host, once a stream
     pol_np = {k: v.cpu().numpy() for k, v in exp.policy_arrays().items()}
     P = len(exp.policies)
     groups = _group_by_signature(pol_np, P)
@@ -300,6 +306,8 @@ def run_stream(exp, arrivals, horizon: float, *, warmup: float = 0.0,
                     f"stream cohort {sig} exceeded {max_chunks} chunks "
                     "without draining — engine not making progress")
             s = carry[0]
+            # torchcheck: disable=item-call: the ledger's reads at a chunk
+            # boundary
             (done, t_arr, stalled, out_done, done_t, admit_t,
              he, se, hb) = (a.cpu().numpy() for a in (
                  carry[3], s.time, s.stalled, s.job_out_done, s.job_done_t,
@@ -345,6 +353,7 @@ def run_stream(exp, arrivals, horizon: float, *, warmup: float = 0.0,
                         f"stream lane {exp.policy_names[pi]!r} exhausted "
                         f"its step budget ({meta.max_steps}) between "
                         "refills — raise chunk capacity or shrink jobs")
+                # torchcheck: disable=tracer-cast: numpy on the host
                 samples[pi].append((float(t_arr[li]), float(he[li].sum()),
                                     float(se[li].sum()),
                                     float(hb[li].sum())))
@@ -354,6 +363,8 @@ def run_stream(exp, arrivals, horizon: float, *, warmup: float = 0.0,
                          for m in (job_m, task_m, pkt_m, lane_m))
                 carry = refill(consts_dev, carry, *masks)
         fs = carry[0]
+        # torchcheck: disable=item-call: the ledger's reads at a chunk
+        # boundary
         (c_sl, c_sw, c_ww, c_dg, c_fo, c_fp) = (a.cpu().numpy() for a in (
             fs.spec_launches, fs.spec_wins, fs.spec_wasted,
             fs.degraded_time, fs.ctrl_failovers, fs.ctrl_failover_park))

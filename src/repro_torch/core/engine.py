@@ -544,6 +544,8 @@ def _sum32(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """float32 sum over ``dim`` added in float64 and rounded once: the
     reference's float32 sum in any order while at most two terms are
     non-zero (the clone-slot sums; see the module note)."""
+    # torchcheck: disable=f64-literal: float64 sum rounded once: a recorded
+    # divergence
     return x.to(torch.float64).sum(dim).to(F32)
 
 
@@ -600,6 +602,8 @@ def _place_batch(pol, ph, aux, s: SimState, mine, pos, vm_live,
         at_pos.scatter_(1, torch.where(scan, pos, n_t),
                         torch.arange(n_t, device=dev).expand(w, n_t))
         rows = _rows(w, dev)[:, 0]
+        # torchcheck: disable=tracer-cast: the placement scan's depth, read on
+        # the host
         for k in range(int(n_scan.max())):
             ok = k < n_scan
             t = at_pos[:, k]
@@ -666,10 +670,14 @@ def _admit_and_place(c: EngineConsts, meta, pol, ph, aux, s: SimState):
                     & (s.task_state == WAITING)
                     & _take(s.job_admitted, job_of_task)
                     & (n_live > 0)[:, None])
+        # torchcheck: disable=item-call: one read of the admission flags an
+        # event
         any_admit, any_orphan = torch.stack(
             [placed.any(), orphaned.any()]).tolist()
         placed = placed | orphaned.any(1)
     else:
+        # torchcheck: disable=tracer-cast: the admission flags, read on the
+        # host
         any_admit, any_orphan = bool(placed.any()), False
 
     if any_admit:
@@ -742,6 +750,7 @@ def _sdn_scan(c: EngineConsts, ready, pair_all, link_bw, nc, cand):
     order = torch.where(ready, idx, n_p).sort(dim=1).values
     n_ready = ready.sum(1)
     k_max, hops = c.routes.shape[1:]
+    # torchcheck: disable=tracer-cast: the SDN scan's depth, read on the host
     for k in range(int(n_ready.max())):
         ok = k < n_ready
         i = order[:, k].clamp(max=n_p - 1)
@@ -884,6 +893,8 @@ def _activate(c: EngineConsts, meta, pol, ph, aux, cache, nc, s: SimState):
                    & ep_placed(c.pkt_dst_task))
     link_bw = _effective_link_bw(c, meta, s)
 
+    # torchcheck: disable=tracer-cast: fast path: no packet ready, no
+    # activation
     if bool(p_ready.any()):
         pair_all = cache["pair"]
         w = p_ready.shape[0]
@@ -1126,6 +1137,8 @@ def _activate_ctrl(c: EngineConsts, meta, pol, ph, aux, cache, nc,
     fresh = p_ready & is_sdn
     pop = fresh | (p_wake & is_sdn)
     order, n_pop = _pop_order(pop)
+    # torchcheck: disable=item-call: one read of the controller's request
+    # sizes
     k_max, any_at_once, any_fresh = (int(v) for v in torch.stack(
         [n_pop.max(), at_once.any().long(), fresh.any().long()]).tolist())
     if not any_fresh:
@@ -1222,6 +1235,8 @@ def _preinstall(c: EngineConsts, meta, pol, aux, cache, nc, s: SimState,
     mask = (c.pkt_valid & _take(admit_now, c.pkt_job.clamp(min=0).long())
             & (s.pkt_cand < 0) & cache["reachable"] & c.ctrl_on & lane)
     order, n = _pop_order(mask)
+    # torchcheck: disable=tracer-cast: the pre-install pass's depth, read on
+    # the host
     k_max = int(n.max())
     if not k_max:
         return s
@@ -1298,6 +1313,7 @@ def _maybe_migrate(c: EngineConsts, meta, pol, s: SimState, nc):
     elig = ((viota < c.n_vms) & (cost > c.mig_threshold)
             & (t[:, None] >= s.vm_mig_until + c.mig_cooldown)
             & lane[:, None])
+    # torchcheck: disable=tracer-cast: fast path: no VM eligible, no migration
     if not bool(elig.any()):
         return s, nc, None
     v = torch.where(elig, cost, -1.0).argmax(1)                 # [W]
@@ -1307,12 +1323,16 @@ def _maybe_migrate(c: EngineConsts, meta, pol, s: SimState, nc):
     mine_d = p_active & (dst_vm == v[:, None])
 
     def counts(mask, node):
+        # torchcheck: disable=f64-literal: exact integer counts in float64 for
+        # the product
         return torch.zeros((w, n_nodes + 1), dtype=torch.float64,
                            device=dev).scatter_add(
             1, torch.where(mask, node, n_nodes).long(),
             mask.to(torch.float64))[:, :n_nodes]
 
     n_h = c.host_fail_t.shape[0]
+    # torchcheck: disable=f64-literal: exact integer counts in float64 for the
+    # product
     hops = c.pair_hops.reshape(n_nodes, n_nodes).to(torch.float64)
     # a packet with both ends on v moves both: pair (h, h), 0 hops
     est = (counts(mine_s & ~mine_d, dst_node) @ hops[:n_h].T
@@ -1325,6 +1345,7 @@ def _maybe_migrate(c: EngineConsts, meta, pol, s: SimState, nc):
     rows = torch.arange(w, device=dev)
     do = (elig.any(1) & (est[rows, h_best] < est[rows, cur_host.long()])
           & (h_best != cur_host))
+    # torchcheck: disable=tracer-cast: fast path: no better host, no migration
     if not bool(do.any()):
         return s, nc, None
 
@@ -1518,6 +1539,8 @@ def _mips_by_host(host_of_task, t_active, task_rate, n_hosts):
     on_host = host_sorted < n_hosts
     rate_sorted = torch.gather(task_rate, 1, order)
     mips = torch.zeros((w, n_hosts), dtype=F32, device=dev)
+    # torchcheck: disable=tracer-cast: the per-host sum's depth, read on the
+    # host
     depth = int(torch.where(on_host, k_sorted, -1).max()) + 1
     for k in range(depth):
         sel = on_host & (k_sorted == k)     # at most one task per host
@@ -1546,6 +1569,7 @@ def _make_aux(c: EngineConsts, meta, pol, ph) -> Dict[str, torch.Tensor]:
     n_t = c.task_job.shape[-1]
     seed = pol["seed"][:, None]
     tidx = torch.arange(n_t, dtype=I32, device=seed.device)
+    # torchcheck: disable=tracer-cast: host policy arrays, once a run
     aux = {
         "task_hash": flow_hash_u32(tidx, c.task_job, seed),
         "pkt_hash": flow_hash_u32(c.pkt_src_task + 1, c.pkt_dst_task + 1,
@@ -1557,10 +1581,12 @@ def _make_aux(c: EngineConsts, meta, pol, ph) -> Dict[str, torch.Tensor]:
                         and (ph["speculation"] == SPEC_ON).any()),
     }
     if meta.has_ctrl:
+        # torchcheck: disable=item-call: the controller's switches, once a run
         ctrl_on, mig_finite = torch.stack(
             [c.ctrl_on, torch.isfinite(c.mig_threshold)]).tolist()
         sdn = ph["routing"] == ROUTE_SDN
         src = c.link_src.long()
+        # torchcheck: disable=tracer-cast: host values, once a run
         aux.update(
             failover_edges=torch.stack([c.ctrl_fail_t, torch.minimum(
                 c.ctrl_fail_t + c.ctrl_failover_delay, c.ctrl_recover_t),
@@ -1592,6 +1618,8 @@ def _step(c: EngineConsts, meta, pol, ph, aux, s: SimState, cache, nc,
             placed, any_placed = placed | migrated, True
             # once every migrating lane has spent ``mig_limit``, no VM
             # can become eligible again: the pass stops for the run
+            # torchcheck: disable=tracer-cast: ends the migration pass for the
+            # run
             aux["mig_on"] = bool(((pol["migration"] == MIG_CONGESTION) & (
                 s.vm_migrations.sum(1) < c.mig_limit)).any())
     if any_placed:
@@ -1838,15 +1866,23 @@ def _advance(consts: EngineConsts, meta, pol, ph, aux, carry,
             dead = _dead_masks(consts, s)
             died = ((dead[0] & ~s.host_dead).any(1)
                     | (dead[1] & ~s.link_dead).any(1)) & ~done
+            # torchcheck: disable=item-call: the loop's done check: one read
+            # an event
             flags = torch.cat([done, died]).cpu()
             done_h = flags[:width]
+            # torchcheck: disable=tracer-cast: reads the host copy of the
+            # flags
             fail = (dead, bool(flags[width:].any()))
         else:
+            # torchcheck: disable=item-call: the loop's done check: one read
+            # an event
             done_h = done.cpu()
+        # torchcheck: disable=tracer-cast: host copy of the flags
         if bool(done_h.all()):
             break
         s_next, cache, nc = _step(consts, meta, pol, ph, aux, s, cache, nc,
                                   fail)
+        # torchcheck: disable=tracer-cast: host copy of the flags
         if bool(done_h.any()):
             # frozen lanes keep their final state (a leaf the step
             # passed through is the same tensor)
@@ -1871,6 +1907,7 @@ def make_packed_simulator(meta: SimMeta):
     def run(consts: EngineConsts, pol: Dict[str, torch.Tensor],
             s0: SimState | None = None) -> SimState:
         width = pol["seed"].shape[0]
+        # torchcheck: disable=item-call: the policies on the host, once a run
         ph = {k: v.cpu().numpy() for k, v in pol.items()}
         s = s0 if s0 is not None else init_state_from_consts(
             consts, meta.n_switches, meta.ctrl_slots, meta.spec_slots, width)

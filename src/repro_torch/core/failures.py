@@ -46,6 +46,7 @@ class FailureSchedule:
 
     @property
     def any_failures(self) -> bool:
+        # torchcheck: disable=tracer-cast: numpy on the host
         return bool(np.isfinite(self.host_fail_t).any()
                     or np.isfinite(self.link_fail_t).any())
 
@@ -53,6 +54,7 @@ class FailureSchedule:
     def n_events(self) -> int:
         """Count of finite fail/recover instants (drives the engine's
         ``max_steps`` safety cap)."""
+        # torchcheck: disable=tracer-cast: numpy on the host
         return int(sum(np.isfinite(a).sum() for a in (
             self.host_fail_t, self.host_recover_t,
             self.link_fail_t, self.link_recover_t)))
@@ -87,6 +89,7 @@ class FailureSchedule:
             bad = np.isfinite(fail) & (rec <= fail)
             if np.any(bad):
                 ids = np.flatnonzero(bad)
+                # torchcheck: disable=item-call: numpy, in an error message
                 raise ValueError(
                     f"{kind} outage window(s) {ids.tolist()} have "
                     f"recover_t <= fail_t (zero/negative length): "
@@ -169,6 +172,7 @@ class DegradationSchedule:
         (or all-``inf``) schedule is the identity: ``SimMeta``'s
         ``has_degradation`` stays False and the engine traces EXACTLY the
         pre-degradation program — same contract as ``any_failures``."""
+        # torchcheck: disable=tracer-cast: numpy on the host
         return bool(self._live_host.any() or self._live_link.any())
 
     @property
@@ -176,6 +180,7 @@ class DegradationSchedule:
         """Finite slow/restore instants on live windows (drives the
         engine's ``max_steps`` cap like ``FailureSchedule.n_events``)."""
         lh, ll = self._live_host, self._live_link
+        # torchcheck: disable=tracer-cast: numpy on the host
         return int(sum(np.isfinite(a[m]).sum() for a, m in (
             (self.host_slow_t, lh), (self.host_restore_t, lh),
             (self.link_slow_t, ll), (self.link_restore_t, ll))))
@@ -211,6 +216,7 @@ class DegradationSchedule:
             bad = np.isfinite(slow) & (restore <= slow)
             if np.any(bad):
                 ids = np.flatnonzero(bad)
+                # torchcheck: disable=item-call: numpy, in an error message
                 raise ValueError(
                     f"{kind} degradation window(s) {ids.tolist()} have "
                     f"restore_t <= slow_t (zero/negative length)")

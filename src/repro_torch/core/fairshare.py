@@ -145,6 +145,7 @@ def rates(policy, route_links: torch.Tensor, active: torch.Tensor,
     per lane (numpy or a tensor).  Each branch runs only when some lane
     takes it; lanes then select their own branch's rates, as the
     reference's vmapped ``lax.cond`` does."""
+    # torchcheck: disable=item-call: a policy read once at setup
     pol = np.asarray(policy.cpu() if torch.is_tensor(policy) else policy)
     wf = pol == TRAFFIC_WATERFILL
     if not wf.any():

@@ -19,6 +19,9 @@ import torch
 def fma32(a, b, c) -> torch.Tensor:
     """float32 ``a * b + c`` with one rounding (see the module note).
     Operands are float32 tensors or Python floats (taken as float32)."""
+    # torchcheck: disable=f64-literal,tracer-cast: float64 product and sum
+    # rounded once: a recorded divergence; a Python constant through a CPU
+    # tensor, no device
     a, b, c = (x.to(torch.float64) if torch.is_tensor(x)
                else float(torch.tensor(x, dtype=torch.float32))
                for x in (a, b, c))

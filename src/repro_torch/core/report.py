@@ -106,4 +106,5 @@ def summarize(setup: SimSetup, s: SimState) -> Dict[str, np.ndarray]:
     rep = {**job_report(setup, s), **energy_report(s)}
     rep["stalled"] = s.stalled
     rep["steps"] = s.steps
+    # torchcheck: disable=item-call: the report to numpy, after the run
     return {k: v.cpu().numpy() for k, v in rep.items()}

@@ -255,6 +255,8 @@ def host_stream_arrays(consts: EngineConsts,
     """Mutable host copies of the streamed leaves with a leading ``[width]``
     lane axis, seeded from one (unbatched) consts, so the zero-refill
     stream uploads EXACTLY what ``make_consts`` produced."""
+    # torchcheck: disable=item-call: host copies of the streamed consts, at
+    # setup
     return {f: np.repeat(getattr(consts, f).cpu().numpy()[None], width,
                          axis=0)
             for f in STREAM_FIELDS}

@@ -6,7 +6,7 @@ buffer (C = ``_capacity``), so the expert FFN is one batched product over
 all experts; pairs past an expert's capacity are dropped, and the router
 keeps the reference's auxiliary load-balancing loss.  The reference's
 expert-parallel branch (``moe_ep``, taken only under a JAX device mesh) is
-not ported (ROADMAP queue 1 item 12): the port always runs the dense path
+not ported (ROADMAP queue 1 item 12b): the port always runs the dense path
 below, the reference's path on one device.
 
 Exactness of the routing: the router runs in float32 (on the card with

@@ -1,8 +1,10 @@
 """Model registry: family -> (init, apply, cache, prefill, decode) API.
 Port of ``src/repro/models/registry.py`` for every family: dense, moe,
 vlm (the transformer), ssm, hybrid and audio (the encoder-decoder).  The
-reference's input-spec helpers (``train_input_specs`` and the others,
-abstract shapes for its multi-pod dry-run) are not ported.
+input specs per (config, shape) (``train_input_specs`` and the others)
+return tensors of the reference's shapes and dtypes (int32 tokens); the
+dry run (``launch/dryrun.py``) calls them under fake mode, so nothing is
+allocated.
 
 ``get_model(cfg)`` returns a ``ModelApi`` whose members close over the
 config.  ``init(seed, device=)`` draws the weights from a ``torch.Generator``
@@ -13,7 +15,7 @@ tensors are.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Dict
 
 import torch
 
@@ -71,3 +73,64 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         decode_step=lambda params, tokens, cache, **kw: f_decode(
             params, tokens, cache, cfg, **kw),
     )
+
+
+# ---------------------------------------------------------------------------
+# input specs per (config, shape)
+# ---------------------------------------------------------------------------
+
+I32 = torch.int32
+
+
+def param_specs(cfg: ModelConfig, device="cpu") -> torch.nn.Module:
+    """The model's parameters with their shapes and dtypes, not drawn
+    (``torch.empty``): the counterpart of ``jax.eval_shape(init)``; fake
+    tensors under fake mode."""
+    from .weights import _MODELS
+    return _MODELS[cfg.family](cfg, torch.device(device))
+
+
+def _sds(shape, dtype, device="cpu") -> torch.Tensor:
+    """An uninitialised tensor of ``shape`` and ``dtype``: the counterpart
+    of ``jax.ShapeDtypeStruct`` (a fake tensor under fake mode)."""
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
+def train_input_specs(cfg: ModelConfig, batch: int, seq: int,
+                      device="cpu") -> Dict[str, torch.Tensor]:
+    if cfg.family == "vlm" or cfg.frontend == "embed" and cfg.family != "audio":
+        return {
+            "embeds": _sds((batch, seq, cfg.d_model), cfg.dtype, device),
+            "pos3": _sds((batch, seq, 3), I32, device),
+            "labels": _sds((batch, seq), I32, device),
+        }
+    if cfg.family == "audio":
+        return {
+            "enc_embeds": _sds((batch, cfg.enc_seq, cfg.d_model), cfg.dtype,
+                               device),
+            "tokens": _sds((batch, seq), I32, device),
+            "labels": _sds((batch, seq), I32, device),
+        }
+    return {
+        "tokens": _sds((batch, seq), I32, device),
+        "labels": _sds((batch, seq), I32, device),
+    }
+
+
+def prefill_input_specs(cfg: ModelConfig, batch: int, seq: int,
+                        device="cpu"):
+    specs = train_input_specs(cfg, batch, seq, device)
+    specs.pop("labels")
+    return specs
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int, device="cpu"):
+    """The decode cache of ``init_cache`` (fake tensors under fake mode)."""
+    return get_model(cfg).init_cache(batch, max_len, device=device)
+
+
+def decode_input_specs(cfg: ModelConfig, batch: int, device="cpu"):
+    if cfg.family == "vlm":
+        return {"embeds": _sds((batch, 1, cfg.d_model), cfg.dtype, device),
+                "pos3": _sds((batch, 1, 3), I32, device)}
+    return {"tokens": _sds((batch, 1), I32, device)}

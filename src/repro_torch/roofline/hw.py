@@ -1,7 +1,9 @@
-"""Target-hardware constants: port of ``src/repro/roofline/hw.py``, kept
-as data so the advisor's predictions equal the reference's.  These are
-the reference's TPU v5e figures (the pod the advisor schedules
-collectives for), not figures of the card the port runs on."""
+"""Target-hardware constants: port of ``src/repro/roofline/hw.py``.
+
+``V5E`` keeps the reference's TPU v5e figures as data, so the advisor (it
+schedules collectives for a TPU pod) predicts what the reference does.
+``H100`` is the card the port runs on, read by the roofline terms
+(``terms.py``) and the dry run (``launch/dryrun.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,3 +20,10 @@ class HwSpec:
 
 
 V5E = HwSpec()
+
+# NVIDIA H100 SXM5 80GB (NVIDIA H100 Tensor Core GPU data sheet): HBM3 at
+# 3.35 TB/s, 989 TFLOP/s of dense bf16 on the tensor cores, 80 GB; fourth-
+# generation NVLink at 900 GB/s a GPU in both directions over 18 links,
+# i.e. 25 GB/s a link a direction.  The same peaks as ``chip_smoke.py``'s.
+H100 = HwSpec(name="h100-sxm", peak_flops_bf16=989e12, hbm_bw=3.35e12,
+              ici_link_bw=25e9, ici_links=18, hbm_bytes=80e9)

@@ -12,7 +12,8 @@ scan; the bf16 flash kernel at its tile edges and on strided views, the
 fused scan across its tile borders, and each kernel's occupancy; the MoE
 layer on the card equal to the CPU with no host sync, MoE and hybrid
 serving loops through the kernels against the plain versions, the
-advisor's DES and an ingest job on CUDA against the CPU.  Every
+advisor's DES and an ingest job on CUDA against the CPU; the op budget on
+the card against the CPU ledger, and its host syncs.  Every
 test is marked ``gpu`` and skips without a card; this file imports
 neither jax nor ``repro``, so it also runs where only PyTorch is
 installed:
@@ -888,3 +889,45 @@ def test_kernels_refuse_autograd_on_cuda(cuda):
             api.apply(params, {"tokens": toks}, backend="kernel")
         with torch.no_grad():
             api.apply(params, {"tokens": toks}, backend="kernel")
+
+
+def test_op_budget_on_cuda_equals_cpu_ledger(cuda):
+    """paper-fabric's serial loop, fleet chunk (first static signature)
+    and stream refill on the card, 32 events each: every aten op count
+    equals the committed CPU ledger (host reads and host copies left
+    out), and the loop dispatches one host copy of its done flags an
+    event, which a CPU run does not."""
+    from repro_torch.analysis import (analyze, device_diff, iter_traces,
+                                      load_ledger, static_sigs)
+    from pathlib import Path
+    ledger = load_ledger(Path(__file__).resolve().parent.parent
+                         / "experiments" / "TORCH_OP_BUDGET.json")
+    traces = list(iter_traces(["paper-fabric"], static_sigs()[:1],
+                              device="cuda"))
+    findings, rows = analyze(traces)
+    assert {f.key for f in findings} <= set(ledger["allowlist"])
+    assert device_diff(rows, ledger) == []
+    serial = rows["paper-fabric/serial"]
+    assert serial["host_copies"] >= serial["events"]
+    assert ledger["programs"]["paper-fabric/serial"]["host_copies"] == 0
+
+
+def test_dispatched_host_syncs_equal_cuda_sync_count(cuda):
+    """The ops after which the host waits (``OpRecord.host_sync``) are the
+    syncs CUDA's sync debug mode reports, on paper-fabric's serial loop."""
+    import warnings
+    from repro_torch.analysis.op_walk import OpRecorder
+    from repro_torch.analysis.programs import scenario_consts, trace_serial
+    scenario_consts("paper-fabric", "cuda")
+    rec = OpRecorder()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with rec:
+                trace_serial("paper-fabric", "cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    reported = sum("synchroniz" in str(w.message) for w in caught)
+    assert reported == sum(op.host_sync for op in rec.ops) > 0
