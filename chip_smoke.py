@@ -251,6 +251,24 @@ Phases, each printed with its wall time:
    for phase 7's 2048-token prefill (the plain attention's, the larger
    transient, into a cache of 4096 positions) the predicted peak against
    the parameters plus what the prefill added to phase 7's memory.
+19. the mesh-bound paths on CUDA: (a) the fleet split over two spawned
+   gloo ranks that share the card: paper-fabric x 4 policies x 3 seeds
+   through ``run_fleet(width=8, chunk_steps=16, devices=2)``, bitwise
+   against ``run()`` on the card on both ranks, with each rank's
+   ``FleetStats`` and ``apsp_f32`` launches (1, its one scenario build);
+   (b) ``moe_apply_ep`` on a one-rank NCCL "model" mesh at
+   qwen3-moe-30b-a3b's full width (one layer's 128 expert banks, 4096
+   tokens, capacity factor 8 so neither path drops) against the dense
+   ``moe_apply`` on the same inputs (2e-2 of the largest output: the EP
+   path rounds each expert's output to bf16 before its return all-to-all,
+   as the reference's does, the dense path does not), with the
+   collectives it dispatched by kind and both paths' device times; (c)
+   ``restore(shardings=)`` of qwen3-4b's smoke checkpoint onto a (1, 1)
+   mesh on the card, every local shard and ``full_tensor()`` bitwise
+   against the saved leaves; the group is destroyed at the end.
+   ``python3 chip_smoke.py --ep-mesh N`` runs 19(b) alone over N cards of
+   one host (one NCCL rank a card, a (1, N) mesh) and prints each rank's
+   report.
 
 Then one JSON line with every kernel's numbers and design, the card's
 name and power limit, and last the line ``{"ok": true, "device":
@@ -2332,12 +2350,305 @@ def dryrun_phase(train: dict, serve: dict, card: str) -> dict:
             "card": card}
 
 
+MESH_POLICIES = [{"routing": 0, "placement": 0},
+                 {"routing": 0, "placement": 2},
+                 {"routing": 1, "placement": 0},
+                 {"routing": 1, "placement": 1}]
+MESH_SEEDS = (0, 1, 2)
+MESH_EP_TOKENS = (4, 1024)
+
+
+def bitwise_equal(a, b) -> bool:
+    """Same shape, dtype and bits, NaN == NaN."""
+    import torch
+    a, b = a.cpu(), b.cpu()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        return bool(((a == b) | (a.isnan() & b.isnan())).all())
+    return torch.equal(a, b)
+
+
+def mesh_fleet_rank(rank: int, world: int, workdir: str, device: str):
+    """Phase 19(a), one rank: ``run()`` and ``run_fleet(devices=2)`` of
+    paper-fabric on ``device`` in a gloo group of ``world``; writes what
+    it saw to ``workdir/rank<r>.json``."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.api import Experiment, run_fleet
+    from repro_torch.kernels.tropical_apsp import kernel as minplus_kernel
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(workdir, 'store')}",
+        rank=rank, world_size=world)
+    try:
+        if device == "cuda":
+            minplus_kernel.build()
+        # the registry builds the scenario, route table included, here
+        exp, build_launches = counted(minplus_kernel, lambda: Experiment(
+            "paper-fabric", MESH_POLICIES, seeds=MESH_SEEDS, device=device))
+        t0 = time.perf_counter()
+        serial, run_launches = counted(minplus_kernel, exp.run)
+        t1 = time.perf_counter()
+        (fleet, st), fleet_launches = counted(
+            minplus_kernel, lambda: run_fleet(exp, width=8, chunk_steps=16,
+                                              devices=world,
+                                              return_stats=True))
+        t2 = time.perf_counter()
+        equal = {name: bitwise_equal(a, b) for name, a, b in
+                 zip(serial.states._fields, serial.states, fleet.states)}
+        out = {"rank": rank, "equal": all(equal.values()),
+               "differs": [k for k, v in equal.items() if not v],
+               "stats": dataclasses.asdict(st),
+               "apsp_launches": sum(m.get("apsp_f32", 0) for m in (
+                   build_launches, run_launches, fleet_launches)),
+               "run_s": t1 - t0, "fleet_s": t2 - t1}
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        torch.distributed.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def ep_compare(dev, mesh, rank: int) -> dict:
+    """Phase 19(b) on one rank of ``mesh`` (its "model" axis the expert
+    axis): qwen3-moe-30b-a3b's one layer of expert banks (the same on every
+    rank, seed 0) as DTensors, this rank's MESH_EP_TOKENS tokens (seed 1 +
+    rank) through ``moe_apply_ep`` against the dense ``moe_apply`` of the
+    whole banks on the same tokens; capacity factor 8, so neither drops."""
+    import types
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models.moe import MoE, fill_moe, moe_apply
+    from repro_torch.models.moe_ep import moe_apply_ep
+    from repro_torch.roofline.collectives import (collective_stats,
+                                                  record_collectives)
+    from repro_torch.sharding.rules import P, to_dtensor
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"),
+                              capacity_factor=8.0)
+    p = fill_moe(MoE(cfg, dev), torch.Generator(device=dev).manual_seed(0))
+    x = torch.randn(MESH_EP_TOKENS + (cfg.d_model,), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(
+                        1 + rank)).to(cfg.dtype)
+    bank = P("model", None, None)
+    ps = types.SimpleNamespace(
+        router=to_dtensor(p.router.detach(), P(None, None), mesh),
+        **{w: to_dtensor(getattr(p, w).detach(), bank, mesh)
+           for w in ("wi", "wg", "wo")})
+    with torch.no_grad():
+        dense, _ = moe_apply(p, x, cfg)
+        with use_mesh(mesh), record_collectives() as recs:
+            ep, _ = moe_apply_ep(ps, x, cfg)
+        err = max_abs_err(ep.float(), dense.float())
+        rel = err / float(dense.float().abs().max())
+        st = collective_stats(recs)
+        check(rel <= 2e-2, f"EP against dense: {err} ({rel} of the largest "
+              f"output)")
+        check(st.counts.get("all-to-all") == 3, f"EP dispatched {st.counts}")
+
+        def run_ep():
+            with use_mesh(mesh):
+                moe_apply_ep(ps, x, cfg)
+        dense_ms = cuda_ms(lambda: moe_apply(p, x, cfg), warmup=2, repeats=5,
+                           inner=3)
+        ep_ms = cuda_ms(run_ep, warmup=2, repeats=5, inner=3)
+    m = mesh["model"].size()
+    out = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "tokens": list(MESH_EP_TOKENS), "experts": cfg.n_experts,
+           "local_experts": cfg.n_experts // m, "top_k": cfg.top_k,
+           "d_model": cfg.d_model, "d_ff_expert": cfg.d_ff_expert,
+           "capacity_factor": cfg.capacity_factor, "max_abs_err": err,
+           "max_rel_err": rel, "tol": "2e-2 of the largest |dense|",
+           "collectives": st.counts, "wire_bytes": st.wire_bytes,
+           "ep_ms": ep_ms, "dense_ms": dense_ms}
+    print(f"rank {rank}: moe_apply_ep over a {m}-rank 'model' axis at "
+          f"qwen3-moe-30b-a3b's width, {MESH_EP_TOKENS} tokens: max |EP - "
+          f"dense| {err:.3g}, {rel:.3g} of the largest output (tol 2e-2); "
+          f"collectives {st.counts} ({st.wire_bytes:.0f} wire bytes); EP "
+          f"{ep_ms:.3f} ms, dense (whole banks, no mesh) {dense_ms:.3f} ms a "
+          f"call", flush=True)
+    return out
+
+
+def ep_mesh_rank(rank: int, world: int, workdir: str) -> None:
+    """One rank of ``--ep-mesh``: ``ep_compare`` on cuda:rank over a
+    (1, world) ("data", "model") NCCL mesh."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    import datetime
+    dev = torch.device(f"cuda:{rank}")
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(workdir, 'store')}",
+        rank=rank, world_size=world, device_id=dev,
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        print(f"rank {rank}: group up", flush=True)
+        probe = torch.ones(1, device=dev)
+        dist.all_reduce(probe)
+        torch.cuda.synchronize()
+        print(f"rank {rank}: all_reduce {float(probe)}", flush=True)
+        mesh = make_mesh((1, world), ("data", "model"))
+        print(f"rank {rank}: mesh {mesh}", flush=True)
+        out = ep_compare(dev, mesh, rank)
+        with open(os.path.join(workdir, f"ep{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def ep_mesh_main(world: int) -> int:
+    """``python3 chip_smoke.py --ep-mesh N``: phase 19(b) over N cards
+    (one rank a card, NCCL); prints each rank's report and the card line.
+    Needs N cards."""
+    import multiprocessing
+    import tempfile
+
+    import torch
+    check(torch.cuda.device_count() >= world,
+          f"--ep-mesh {world}: {torch.cuda.device_count()} cards")
+    with tempfile.TemporaryDirectory() as d:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=ep_mesh_rank, args=(r, world, d))
+                 for r in range(world)]
+        t0 = time.perf_counter()
+        for pr in procs:
+            pr.start()
+        deadline = time.monotonic() + 240
+        for pr in procs:
+            pr.join(timeout=max(1.0, deadline - time.monotonic()))
+        codes = [pr.exitcode for pr in procs]
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+        check(codes == [0] * world, f"EP ranks exited {codes}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(d, f"ep{r}.json")) as f:
+                ranks.append(json.load(f))
+    print(json.dumps({"ep_mesh": ranks,
+                      "spawn_s": time.perf_counter() - t0}))
+    print(gpu_line())
+    return 0
+
+
+def mesh_phase(dev) -> dict:
+    """Phase 19: the fleet over two ranks, expert parallelism and the
+    sharded restore, each on the card (see the module docstring)."""
+    import multiprocessing
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_model
+    from repro_torch.sharding import rules
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train import init as opt_init
+
+    report = {}
+    # (a) the fleet split: two ranks on one card, gloo for the gathers
+    with tempfile.TemporaryDirectory() as d:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=mesh_fleet_rank,
+                             args=(r, 2, d, dev.type)) for r in range(2)]
+        t0 = time.perf_counter()
+        for pr in procs:
+            pr.start()
+        for pr in procs:
+            pr.join(timeout=600)
+        spawn_s = time.perf_counter() - t0
+        codes = [pr.exitcode for pr in procs]
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+        check(codes == [0, 0], f"fleet ranks exited {codes}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    for r in ranks:
+        check(r["equal"], f"fleet rank {r['rank']}: run_fleet(devices=2) "
+              f"differs from run() in {r['differs']}")
+        check(r["stats"]["devices"] == 2, f"fleet rank {r['rank']}: "
+              f"{r['stats']['devices']} devices")
+        check(r["apsp_launches"] == 1, f"fleet rank {r['rank']}: "
+              f"{r['apsp_launches']} apsp_f32 launches, not 1")
+    check(ranks[0]["stats"] == ranks[1]["stats"],
+          "the fleet's ranks took different decisions")
+    report["fleet"] = {"ranks": ranks, "spawn_s": spawn_s,
+                       "apsp_launches": [r["apsp_launches"] for r in ranks]}
+    print(f"fleet over 2 ranks on one card (gloo gathers): bitwise equal "
+          f"to run() on both; stats {ranks[0]['stats']}; apsp_f32 launches "
+          f"{report['fleet']['apsp_launches']}; run() "
+          f"{ranks[0]['run_s']:.3f} s, run_fleet {ranks[0]['fleet_s']:.3f} s "
+          f"on rank 0; spawn to exit {spawn_s:.1f} s")
+
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=f"file://{os.path.join(d, 'store')}", rank=0,
+            world_size=1)
+        try:
+            # (b) expert parallelism on a one-rank "model" axis
+            report["ep"] = ep_compare(dev, make_mesh((1,), ("model",),
+                                                     dev.type), 0)
+            # (c) a sharded restore onto a one-card mesh
+            scfg = get_smoke_config("qwen3-4b")
+            model = get_model(scfg).init(0, device=dev)
+            ostate = opt_init(AdamWConfig(), model)
+            ckpt.save(os.path.join(d, "ckpt"), 1, (model, ostate))
+            mesh2 = make_mesh((1, 1), ("data", "model"), dev.type)
+            pspecs = rules.param_specs(model, mesh2)
+            like = get_model(scfg).init(1, device=dev)
+            (like, _), _ = ckpt.restore(
+                os.path.join(d, "ckpt"), (like, opt_init(AdamWConfig(),
+                                                         like)),
+                shardings=(rules.named(mesh2, pspecs), None))
+            with np.load(os.path.join(d, "ckpt", "step_00000001",
+                                      "arrays.npz")) as z:
+                saved = dict(z)
+            n = 0
+            from repro_torch.models.weights import leaf_map
+            for key, leaf in leaf_map(like, scfg).items():
+                arr = saved[f"0/{key}"]
+                for t, row in zip(leaf.params,
+                                  arr if leaf.stacked else (arr,)):
+                    want = torch.from_numpy(np.array(row)).to(t.dtype)
+                    check(t.device_mesh is mesh2 and bitwise_equal(
+                        t.detach().to_local(), want) and bitwise_equal(
+                        t.detach().full_tensor(), want),
+                        f"sharded restore: {key} differs")
+                    n += 1
+            report["restore"] = {"params_checked": n}
+            print(f"restore(shardings=) of qwen3-4b's smoke checkpoint onto "
+                  f"a (1, 1) mesh on the card: {n} parameters bitwise")
+        finally:
+            dist.destroy_process_group()
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    if sys.argv[1:2] == ["--ep-mesh"]:
+        return ep_mesh_main(int(sys.argv[2]))
     import multiprocessing
     import numpy as np
 
@@ -3302,6 +3613,11 @@ def main() -> int:
     with phase("18 the op budget and the dry run on CUDA"):
         tooling = {"op_budget": op_budget_phase(),
                    "dryrun": dryrun_phase(train, serve, card)}
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("19 the mesh-bound paths on CUDA"):
+        mesh = mesh_phase(dev)
     print(f"sum of phases: {sum(PHASE_S.values()):.3f} s "
           f"({', '.join(f'{k} {v:.1f}' for k, v in PHASE_S.items())})")
 
@@ -3341,6 +3657,7 @@ def main() -> int:
                  "op_budget_launches": {
                      k: v["launches"]["apsp_f32"] for k, v in
                      tooling["op_budget"]["builds"].items()},
+                 "mesh_fleet_launches": mesh["fleet"]["apsp_launches"],
                  **xl_apsp},
         "fat_tree_32": {"entry": "apsp_f32", "squarings": ft_ran,
                         "squarings_needed": ft_need,
@@ -3425,7 +3742,7 @@ def main() -> int:
         "serve": serve, "serve_ssm": serve_ssm, "serve_moe": serve_moe,
         "serve_hybrid": serve_hybrid, "serve_whisper": serve_whisper,
         "serve_vlm": serve_vlm, "train": train, "tooling": tooling,
-        "phase_s": PHASE_S}, default=str))
+        "mesh": mesh, "phase_s": PHASE_S}, default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -12,8 +12,15 @@ exit fires.  Lanes are grouped by their STATIC policy signature (routing,
 traffic, placement) first: the cohort's ``_step`` dispatch then issues one
 branch of each.
 
-The port runs on one device: the reference's ``shard_map`` spread over a
-fleet mesh waits for ROADMAP queue 1 item 12b.
+``run_fleet(devices=n)`` spreads each cohort's lanes over n ranks of a
+``torch.distributed`` group, as the reference spreads them with
+``shard_map`` over a 1-D ``"fleet"`` mesh (``_LaneSplit``): each rank
+advances its own block of lanes on its own device with the same chunk
+program, with no collective inside a chunk (the early exit is
+rank-local); after each chunk the done flags are all-gathered so that
+every rank's ``CohortSchedule`` takes the same decisions, and at a
+retire the retired lanes' rows, so that every rank returns the whole
+grid.
 
 Results are bit-identical to ``Experiment.run``: the chunk runs the SAME
 loop body (``engine._advance``) and freezes each lane at the first state
@@ -23,6 +30,7 @@ where ``_finished`` holds, exactly the state the serial loop stops at
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import (Any, Callable, Dict, Hashable, List, Optional, Sequence,
                     Tuple)
 
@@ -136,8 +144,8 @@ class FleetStats:
     cohorts: int = 0     # (scenario × static-sig) groups
     chunks: int = 0      # K-step chunk invocations
     refills: int = 0     # lanes recycled mid-cohort
-    devices: int = 1     # devices the lanes ran on (one, in the port)
-    width: int = 0       # lanes per cohort
+    devices: int = 1     # ranks the lanes ran on (1 = no group)
+    width: int = 0       # lanes per cohort (after the round-up to devices)
 
 
 def _chunk_program(meta: SimMeta, sig: Tuple[int, ...], chunk_steps: int,
@@ -165,16 +173,17 @@ def _init_program(meta: SimMeta, width: int) -> Callable:
         lambda: lambda c: init_fleet_carry(c, meta, width))
 
 
-def _lane_policies(pol_np: Dict[str, np.ndarray],
-                   sched: CohortSchedule) -> Dict[str, np.ndarray]:
-    """[W]-shaped lane-varying policy rows (static fields excluded); a pad
-    lane takes member 0's."""
+def _lane_policies(pol_np: Dict[str, np.ndarray], sched: CohortSchedule,
+                   lanes: slice = slice(None)) -> Dict[str, np.ndarray]:
+    """The lane-varying policy rows of the cohort's ``lanes`` (static
+    fields excluded); a pad lane takes member 0's."""
     out = {}
     for k, col in pol_np.items():
         if k in STATIC_FIELDS:
             continue
-        rows = [col[m] if m is not None else col[0] for m in sched.lane]
-        out[k] = np.stack(rows)
+        rows = [col[m] if m is not None else col[0]
+                for m in sched.lane[lanes]]
+        out[k] = np.stack(rows) if rows else col[:0]
     return out
 
 
@@ -188,6 +197,88 @@ def _group_by_signature(pol_np: Dict[str, np.ndarray], n: int
     return groups
 
 
+class _LaneSplit:
+    """A cohort's ``width`` lanes over the ``n`` first ranks of the default
+    group: rank r < n holds lanes ``[r * w, (r + 1) * w)``, ``w = width /
+    n``; a rank past ``n`` holds none.  Every rank takes part in the
+    gathers, so every rank sees every lane's done flag and retired row.
+
+    The gathers move host data (the flags and rows the schedule reads on
+    the host anyway) as CPU tensors over a 1-D ``"fleet"`` mesh of the
+    whole group: the group needs a CPU backend (gloo, or
+    ``"cpu:gloo,cuda:nccl"``), whatever device the lanes run on.  They are
+    functional all-gathers (``roofline/collectives.py`` records them).
+    Without a group (``mesh`` None) nothing is gathered."""
+
+    def __init__(self, n: int, rank: int, width: int, mesh):
+        self.n, self.mesh = n, mesh
+        self.per = width // n
+        lo = min(rank, n) * self.per
+        self.lanes = slice(lo, lo + (self.per if rank < n else 0))
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        import torch.distributed._functional_collectives as funcol
+        f = getattr(funcol, "all_gather_single", None) or \
+            funcol.all_gather_tensor
+        return f(t.contiguous(), 0, self.mesh).wait()
+
+    def done(self, local: torch.Tensor) -> np.ndarray:
+        """The [width] done flags from this rank's block."""
+        # torchcheck: disable=item-call: the done flags at a chunk boundary
+        local = local.cpu()
+        if self.mesh is None:
+            return local.numpy()
+        block = torch.zeros(self.per, dtype=torch.uint8)
+        block[:local.shape[0]] = local.to(torch.uint8)
+        return self._gather(block)[:self.n * self.per].numpy().astype(bool)
+
+    def rows(self, state: SimState, lanes: List[int]) -> List[torch.Tensor]:
+        """Every leaf's rows at ``lanes`` (cohort lane numbers), in that
+        order; across ranks, each rank's rows travel as the bytes of one
+        padded [k, row bytes] block."""
+        if self.mesh is None:
+            idx = torch.tensor(lanes, device=state.time.device)
+            return [h[idx] for h in state]
+        owner = [l // self.per for l in lanes]
+        k = max(owner.count(r) for r in range(self.n))
+        mine = torch.tensor([l - self.lanes.start for l in lanes
+                             if self.lanes.start <= l < self.lanes.stop],
+                            dtype=torch.long)
+        # torchcheck: disable=item-call: the retired rows, at a retire
+        parts = [h[mine.to(h.device)].cpu()
+                 .reshape(len(mine), math.prod(h.shape[1:]))
+                 .view(torch.uint8) for h in state]
+        width = sum(p.shape[1] for p in parts)
+        block = torch.zeros((k, width), dtype=torch.uint8)
+        block[:len(mine)] = torch.cat(parts, dim=1)
+        got = self._gather(block)
+        seen = {r: 0 for r in range(self.n)}
+        pick = []
+        for r in owner:
+            pick.append(r * k + seen[r])
+            seen[r] += 1
+        got = got[torch.tensor(pick, dtype=torch.long)]
+        out, at = [], 0
+        for h in state:
+            n = math.prod(h.shape[1:]) * h.element_size()
+            out.append(got[:, at:at + n].clone().view(h.dtype)
+                       .reshape((len(lanes),) + tuple(h.shape[1:]))
+                       .to(h.device))
+            at += n
+        return out
+
+
+def _fleet_devices(devices: Optional[int]) -> Tuple[int, int, int]:
+    """(n, world, rank): ``devices`` capped at the default group's world
+    size (``None``: the world size; 1 and rank 0 without a group)."""
+    import torch.distributed as dist
+    grouped = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if grouped else 1
+    rank = dist.get_rank() if grouped else 0
+    n = world if devices is None else max(1, min(devices, world))
+    return n, world, rank
+
+
 def run_fleet(exp, width: int = 32, chunk_steps: int = 32,
               devices: Optional[int] = None, return_stats: bool = False,
               predictor: Optional[StepPredictor] = None):
@@ -195,22 +286,26 @@ def run_fleet(exp, width: int = 32, chunk_steps: int = 32,
     engine (DESIGN.md §9) and assemble the same ``Results`` grid ``[S, P,
     ...]`` ``Experiment.run`` returns, bit for bit.
 
-    ``width`` lanes per cohort; ``chunk_steps`` events per chunk (K);
-    ``devices`` must be ``None`` or 1 (the port runs on one device);
-    ``return_stats`` also returns a ``FleetStats``."""
-    if devices is not None and devices > 1:
-        raise NotImplementedError(
-            f"run_fleet over {devices} devices is not ported (ROADMAP "
-            "queue 1 item 12b: the reference spreads lanes with shard_map "
-            "over a fleet mesh); the port runs on one device")
+    ``width`` lanes per cohort, rounded up to a multiple of the ranks;
+    ``chunk_steps`` events per chunk (K); ``devices`` ranks of the default
+    process group to spread the lanes over (``None``: all of them; capped
+    at the world size; 1 without a group).  With ``devices`` below the
+    world size the first ``devices`` ranks hold the lanes and the others
+    hold none but join every gather; every rank returns the whole
+    ``Results``.  ``return_stats`` also returns a ``FleetStats``."""
     predictor = predictor or _PREDICTOR
+    n_dev, world, rank = _fleet_devices(devices)
+    mesh = None
+    if world > 1:
+        from ..sharding.mesh import make_mesh
+        mesh = make_mesh((world,), ("fleet",), "cpu")
     S, P = len(exp.scenarios), len(exp.policies)
     consts, meta = exp.build()
     # torchcheck: disable=item-call: the policies on the host, once a fleet
     pol_np = {k: v.cpu().numpy() for k, v in exp.policy_arrays().items()}
     groups = _group_by_signature(pol_np, P)
 
-    stats = FleetStats(sims=S * P)
+    stats = FleetStats(sims=S * P, devices=n_dev)
     # the [S, P, ...] state grid, allocated at the first retire and
     # written in place, one row gather per leaf a boundary
     out: Optional[List[torch.Tensor]] = None
@@ -227,46 +322,47 @@ def run_fleet(exp, width: int = 32, chunk_steps: int = 32,
             order = sorted(members, key=lambda p: predictor.predict(
                 (sname, sig, exp.policy_names[p]), gkey, n_tasks, n_pkts))
             W = min(width, len(order))
+            W = n_dev * -(-W // n_dev)
             sched = CohortSchedule(order, W)
+            split = _LaneSplit(n_dev, rank, W, mesh)
             stats.cohorts += 1
             stats.width = max(stats.width, W)
+            Wl = split.lanes.stop - split.lanes.start
 
-            chunk = _chunk_program(meta, sig, chunk_steps, W)
-            carry0 = _init_program(meta, W)(consts_s)
-            pad = torch.from_numpy(sched.pad_mask()).to(carry0[3].device)
+            chunk = _chunk_program(meta, sig, chunk_steps, Wl)
+            carry0 = _init_program(meta, Wl)(consts_s)
+            pad = torch.from_numpy(sched.pad_mask()[split.lanes]).to(
+                carry0[3].device)
             carry = (*carry0[:3], carry0[3] | pad)
 
             # hard backstop: every member can run at most max_steps events
             max_chunks = ((len(order) + W)
                           * (meta.max_steps // chunk_steps + 2))
             chunks = 0
-            pol_lane = _lane_policies(pol_np, sched)
+            pol_lane = _lane_policies(pol_np, sched, split.lanes)
             while sched.active:
-                carry = chunk(consts_s, pol_lane, carry)
+                if Wl:
+                    carry = chunk(consts_s, pol_lane, carry)
                 chunks += 1
                 stats.chunks += 1
                 if chunks > max_chunks:
                     raise RuntimeError(
                         f"fleet cohort {gkey} exceeded {max_chunks} chunks "
                         "without draining — engine not making progress")
-                # torchcheck: disable=item-call: the done flags at a chunk
-                # boundary
-                done = carry[3].cpu().numpy()
-                retire, refill = sched.step(done)
+                retire, refill = sched.step(split.done(carry[3]))
                 if retire:
-                    s = carry[0]
+                    rows = split.rows(carry[0], [l for l, _ in retire])
                     if out is None:
                         out = [torch.empty((S, P) + a.shape[1:],
                                            dtype=a.dtype, device=a.device)
-                               for a in s]
-                    dev = s.time.device
-                    lanes = torch.tensor([l for l, _ in retire], device=dev)
-                    mems = torch.tensor([m for _, m in retire], device=dev)
-                    for o, h in zip(out, s):
-                        o[si, mems] = h[lanes]
+                               for a in carry[0]]
+                    mems = torch.tensor([m for _, m in retire],
+                                        device=out[0].device)
+                    for o, r in zip(out, rows):
+                        o[si, mems] = r
                     # torchcheck: disable=item-call: retired lanes' steps at a
                     # chunk boundary
-                    steps = s.steps[lanes].tolist()
+                    steps = rows[SimState._fields.index("steps")].tolist()
                     for (_, member), n in zip(retire, map(float, steps)):
                         predictor.observe(
                             (sname, sig, exp.policy_names[member]), n)
@@ -274,12 +370,13 @@ def run_fleet(exp, width: int = 32, chunk_steps: int = 32,
                 if refill.any():
                     # torchcheck: disable=tracer-cast: numpy on the host
                     stats.refills += int(refill.sum())
-                    mask = torch.from_numpy(refill).to(carry[3].device)
+                    mask = torch.from_numpy(refill[split.lanes]).to(
+                        carry[3].device)
                     # refilled lanes go back to the t=0 carry, done flag
                     # included: a sim finished at t=0 stays frozen and
                     # retires with its t=0 state, as the serial run does
-                    carry = _refill_program(meta, W)(mask, carry0, carry)
-                    pol_lane = _lane_policies(pol_np, sched)
+                    carry = _refill_program(meta, Wl)(mask, carry0, carry)
+                    pol_lane = _lane_policies(pol_np, sched, split.lanes)
 
     states = SimState(*out)
     if S == 1:   # Results keeps a scenario axis on consts

@@ -15,12 +15,34 @@ apply here and the dry run runs on any machine.  The reference sets
 ``XLA_FLAGS`` for 512 host devices and runs decode without FSDP; one
 device has neither.
 
+Over a mesh (``lower_cell(multi_pod=False)``: 16 x 16 ``("data",
+"model")``, 256 chips; ``True``: 2 x 16 x 16 with ``"pod"``, 512) the
+count is rank 0's, under a fake process group of ``mesh_chips`` ranks in
+this one process (``fake_mesh``): the parameters are DTensors placed by
+``sharding.param_specs``, the moments by ``opt_state_specs`` (ZeRO over
+the data axes; ``train/zero.py`` is the update), the batch by
+``batch_specs``, and the step runs on rank-local tensors (weights
+all-gathered at use, MoE expert-parallel over all-to-alls).  The
+functional collectives it dispatches give the wire bytes
+(``roofline/collectives.py``); ``collective_s`` divides them by
+``hw.H100_SCALEOUT_BW``.  Layout: a train cell takes the reference's
+FSDP plus EP layout.  The reference runs decode as Megatron tensor
+parallelism and a prefill whose batch leaves ``"model"`` idle with the
+sequence over ``"model"``; the port has no partitioner to do either, so
+those cells run the FSDP layout too, the ranks the batch leaves idle
+compute a replica, and the cache is the local batch's
+(``cache_specs_tree``'s Dh-over-``"model"`` layout pairs with tensor
+parallel decode: ROADMAP queue 1 item 12c).  Each record names its
+``layout`` and the reference's.
+
 Depth: XLA counts a ``lax.scan`` body once, so the reference unrolls its
 layer scans (``repro.util.unrolled_counting``) and extrapolates from
 depth 1 and 2.  Eager runs every layer, so no switch is needed:
 ``lower_cell(extrapolate=True)`` counts depth 1, depth 2 and the full
 depth, records outside + L x per_layer beside the full count, and checks
-that FLOPs, bytes and ops agree exactly.
+that FLOPs, bytes and ops agree exactly, and over a mesh the wire bytes
+too (a train cell on a mesh: the FLOPs and the wire bytes, see
+``MESH_TRAIN_EXACT``).
 
 ``--fit-only`` (``lower_cell(fit_only=True)``) answers only whether a
 cell fits: each count stops once more than the card's bytes are live, so
@@ -31,18 +53,23 @@ lower bound, and no depth identity.
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k
   python -m repro_torch.launch.dryrun --all --out experiments/dryrun_torch
+  python -m repro_torch.launch.dryrun --all --multi-pod off   # 16 x 16
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import functools
 import json
+import math
 import os
 import sys
 import time
 import traceback
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
+import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from ..configs import ARCH_IDS, SHAPES, ShapeSpec, get_config, shape_applies
@@ -50,17 +77,83 @@ from ..models import get_model
 from ..models.registry import (cache_specs, decode_input_specs,
                                param_specs, prefill_input_specs,
                                train_input_specs)
+from ..roofline.collectives import record_collectives
 from ..roofline.counting import Counts, count
-from ..roofline.hw import H100
+from ..roofline.hw import H100, H100_SCALEOUT_BW
 from ..roofline.terms import (analyze_raw, count_active_params, count_params,
                               model_flops_cell, raw_counts)
-from ..train import AdamWConfig, make_train_step
+from ..sharding import rules
+from ..train import AdamWConfig, make_train_step, zero
 from ..train import init as opt_init
+from ..train import update as opt_update
+from .mesh import PRODUCTION, make_mesh, mesh_chips, use_mesh
 
 MESH = "1xH100"
 # the counts the depth identity holds exactly (the peak is a maximum, not
 # a sum over layers)
 LINEAR = ("flops", "bytes", "ops")
+# over a mesh the wire bytes too.  A train cell on a mesh holds exactly
+# on the FLOPs and the wire bytes only: ZeRO puts a moment's data-axis
+# shard on its first dim that divides, the layer stack's at some depths
+# and the next dim's at others, and a reduce-scatter on another dim
+# dispatches other copies (the same wire bytes, other local bytes and ops)
+MESH_LINEAR = LINEAR + ("wire_bytes",)
+MESH_TRAIN_EXACT = ("flops", "wire_bytes")
+
+
+@contextlib.contextmanager
+def fake_mesh(shape, axes) -> Iterator:
+    """A fake process group of ``prod(shape)`` ranks in this process, as
+    rank 0, and its ``DeviceMesh`` on the CPU, ambient inside the block;
+    the group is destroyed on exit.  Its collectives move nothing and
+    return fake tensors of the right shapes."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        mesh = make_mesh(shape, axes, "cpu")
+        with use_mesh(mesh):
+            yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def _local(tree: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """A global batch as this rank's rows (``batch_specs``' layout)."""
+    specs = rules.batch_specs(tree, mesh)
+    return {k: v[rules.local_slices(v.shape, specs[k], mesh)].clone()
+            for k, v in tree.items()}
+
+
+def _recorded(fn, records: Optional[List[Any]]):
+    """``fn``, its collectives appended to ``records`` (when a list)."""
+    if records is None:
+        return fn
+
+    def run(*args):
+        with record_collectives() as recs:
+            try:
+                return fn(*args)
+            finally:
+                records.extend(recs)
+    return run
+
+
+def _layouts(cfg, shape: ShapeSpec, mesh) -> Tuple[str, str]:
+    """(the port's layout of a mesh cell, the reference's)."""
+    axes = rules.batch_specs({"x": torch.empty(shape.global_batch, 0)},
+                             mesh)["x"][0]
+    axes = axes if isinstance(axes, tuple) else (axes,)
+    ep = "+ep" if cfg.is_moe_arch else ""
+    port = f"fsdp{ep}, batch over {'+'.join(a for a in axes if a) or 'none'}"
+    if shape.kind == "decode":
+        ref = "tp (fsdp=False), batch over the data axes"
+    elif shape.kind == "prefill" and "model" not in axes:
+        ref = "fsdp, sequence over 'model' (batch leaves it idle)"
+    else:
+        ref = port
+    return port, ref
 
 
 def depth_units(cfg) -> int:
@@ -79,41 +172,63 @@ def with_units(cfg, u: int):
 
 def lower_one(cfg, shape: ShapeSpec, *, backend: str, remat: bool,
               microbatch: int, stop_bytes: float = float("inf"),
-              cache_len: int = 0) -> Tuple[Counts, Any]:
+              cache_len: int = 0, mesh=None,
+              records: Optional[List[Any]] = None) -> Tuple[Counts, Any]:
     """Count one step function for one cfg/shape on fake tensors:
     ``(Counts, the model's parameters)``; past ``stop_bytes`` live the
     count stops (``counting.count``).  A prefill's or decode's cache holds
-    ``cache_len`` positions (0: the shape's ``seq_len``)."""
+    ``cache_len`` positions (0: the shape's ``seq_len``).  With ``mesh`` (a
+    ``DeviceMesh`` over a group set up by the caller, e.g. ``fake_mesh``)
+    the count is this rank's (see the module docstring); the collectives
+    it dispatched are appended to ``records``."""
     api = get_model(cfg)
     b, s = shape.global_batch, shape.seq_len
     max_len = cache_len or s
-    with FakeTensorMode():
+    ctx = use_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+    with FakeTensorMode(), ctx:
         params = param_specs(cfg)
+        if mesh is not None:
+            pspecs = rules.param_specs(params, mesh)
+            rules.distribute(params, pspecs, mesh)
         if shape.kind == "train":
             ocfg = AdamWConfig()
-            opt = opt_init(ocfg, params)
             batch = train_input_specs(cfg, b, s)
+            if mesh is None:
+                opt = opt_init(ocfg, params)
+                update = opt_update
+            else:
+                opt = zero.moments(ocfg, params,
+                                   rules.opt_state_specs(params, mesh), mesh)
+                batch = _local(batch, mesh)
+                update = functools.partial(zero.update, pspecs=pspecs,
+                                           mesh=mesh)
             step = make_train_step(api, ocfg, backend=backend, remat=remat,
-                                   microbatch=microbatch)
-            counts, _ = count(step, params, opt, batch,
+                                   microbatch=microbatch, update=update)
+            counts, _ = count(_recorded(step, records), params, opt, batch,
                               stop_bytes=stop_bytes)
         elif shape.kind == "prefill":
             batch = prefill_input_specs(cfg, b, s)
-            cache = cache_specs(cfg, b, max_len)
-            counts, _ = count(
+            if mesh is not None:
+                batch = _local(batch, mesh)
+            bl = next(iter(batch.values())).shape[0]
+            cache = cache_specs(cfg, bl, max_len)
+            counts, _ = count(_recorded(
                 lambda p, bt, c: api.prefill(p, bt, c, backend=backend),
-                params, batch, cache, stop_bytes=stop_bytes)
+                records), params, batch, cache, stop_bytes=stop_bytes)
         else:  # decode
-            cache = cache_specs(cfg, b, max_len)
             extra = decode_input_specs(cfg, b)
+            if mesh is not None:
+                extra = _local(extra, mesh)
+            bl = next(iter(extra.values())).shape[0]
+            cache = cache_specs(cfg, bl, max_len)
             if cfg.family == "vlm":
                 def decode(p, e, c):
                     return api.decode_step(p, None, c, batch_extra=e)
             else:
                 def decode(p, e, c):
                     return api.decode_step(p, e["tokens"], c)
-            counts, _ = count(decode, params, extra, cache,
-                              stop_bytes=stop_bytes)
+            counts, _ = count(_recorded(decode, records), params, extra,
+                              cache, stop_bytes=stop_bytes)
     return counts, params
 
 
@@ -121,38 +236,69 @@ def lower_cell(arch: str, shape_name: str, *, backend: str = "chunked",
                remat: bool = True, microbatch: int = 0,
                extrapolate: bool = True, fit_only: bool = False,
                cfg_override=None, shape_override: Optional[ShapeSpec] = None,
-               cache_len: int = 0) -> Tuple[Counts, Dict[str, Any]]:
+               cache_len: int = 0, multi_pod: Optional[bool] = None,
+               mesh=None) -> Tuple[Counts, Dict[str, Any]]:
     """Count the full cell (and, with ``extrapolate``, depth 1 and 2 for
     the depth identity): ``(Counts, info)``.  ``fit_only`` stops each
     count past the card's bytes (see the module docstring).
     ``shape_override`` replaces ``SHAPES[shape_name]`` (a cut shape keeps
     the name it is reported under); ``cache_len`` sizes a prefill's or
-    decode's cache (0: the shape's ``seq_len``)."""
+    decode's cache (0: the shape's ``seq_len``).  ``multi_pod`` ``None``
+    counts one H100; ``False`` rank 0 of the 16 x 16 mesh, ``True`` of
+    2 x 16 x 16, each under its own fake group; ``mesh`` instead counts on
+    a ``DeviceMesh`` whose group the caller set up."""
     cfg = cfg_override or get_config(arch)
     shape = shape_override or SHAPES[shape_name]
     ok, why = shape_applies(cfg, shape_name)
     if not ok:
         raise ValueError(f"N/A cell: {why}")
+    if mesh is None and multi_pod is not None:
+        with fake_mesh(*PRODUCTION[multi_pod]) as m:
+            return lower_cell(arch, shape_name, backend=backend, remat=remat,
+                              microbatch=microbatch, extrapolate=extrapolate,
+                              fit_only=fit_only, cfg_override=cfg_override,
+                              shape_override=shape_override,
+                              cache_len=cache_len, multi_pod=multi_pod,
+                              mesh=m)
     kw = dict(backend=backend, remat=remat, microbatch=microbatch,
               stop_bytes=H100.hbm_bytes if fit_only else float("inf"),
-              cache_len=cache_len)
+              cache_len=cache_len, mesh=mesh)
+    chips = mesh_chips(mesh) if mesh is not None else 1
+    name = (mesh_name(multi_pod) if multi_pod is not None
+            else "x".join(map(str, mesh.shape)) if mesh is not None
+            else MESH)
+    linear = MESH_LINEAR if mesh is not None else LINEAR
+
+    def counted(c: Counts, recs) -> Dict[str, float]:
+        raw = raw_counts(c, recs, num_partitions=chips)
+        return {"flops": c.flops, "bytes": c.bytes, "ops": c.ops,
+                "wire_bytes": raw["wire_bytes"]}
+
+    def one(cfg_) -> Tuple[Counts, Any, list]:
+        recs: list = []
+        c, p = lower_one(cfg_, shape, records=recs, **kw)
+        return c, p, recs
 
     t0 = time.time()
-    counts, params = lower_one(cfg, shape, **kw)
+    counts, params, recs = one(cfg)
     t_count = time.time() - t0
-    full = {k: getattr(counts, k) for k in LINEAR}
+    full = {k: counted(counts, recs)[k] for k in linear}
 
     units = depth_units(cfg)
     depth = None
     if extrapolate and units > 2 and counts.complete:
-        c1, _ = lower_one(with_units(cfg, 1), shape, **kw)
-        c2, _ = lower_one(with_units(cfg, 2), shape, **kw)
-        per = {k: getattr(c2, k) - getattr(c1, k) for k in LINEAR}
-        outside = {k: getattr(c1, k) - per[k] for k in LINEAR}
-        extrap = {k: outside[k] + per[k] * units for k in LINEAR}
+        c1, _, recs1 = one(with_units(cfg, 1))
+        c2, _, recs2 = one(with_units(cfg, 2))
+        r1, r2 = counted(c1, recs1), counted(c2, recs2)
+        per = {k: r2[k] - r1[k] for k in linear}
+        outside = {k: r1[k] - per[k] for k in linear}
+        extrap = {k: outside[k] + per[k] * units for k in linear}
+        exact = MESH_TRAIN_EXACT if mesh is not None and \
+            shape.kind == "train" else linear
         depth = {"units": units, "per_unit": per, "outside": outside,
                  "extrapolated": extrap, "full": full,
-                 "equal": extrap == full}
+                 "equal": all(extrap[k] == full[k] for k in exact),
+                 "equal_keys": [k for k in linear if extrap[k] == full[k]]}
         if not depth["equal"]:
             raise AssertionError(f"{arch} {shape_name}: outside + "
                                  f"{units} x per_unit {extrap} != the full "
@@ -161,13 +307,15 @@ def lower_cell(arch: str, shape_name: str, *, backend: str = "chunked",
     params_n = count_params(params)
     active_n = count_active_params(params, cfg)
     mf = model_flops_cell(cfg, shape, active_n)
-    rc = raw_counts(counts)
+    rc = raw_counts(counts, recs, num_partitions=chips)
     rep = analyze_raw(flops=rc["flops"], byts=rc["bytes"],
                       wire=rc["wire_bytes"], counts=rc["counts"],
-                      arch=arch, shape=shape_name, mesh_name=MESH, chips=1,
-                      model_flops=mf, peak_bytes=counts.peak_bytes, hw=H100)
+                      arch=arch, shape=shape_name, mesh_name=name,
+                      chips=chips, model_flops=mf,
+                      peak_bytes=counts.peak_bytes, hw=H100,
+                      link_bw=H100_SCALEOUT_BW if mesh is not None else None)
     info = {
-        "arch": arch, "shape": shape_name, "mesh": MESH, "chips": 1,
+        "arch": arch, "shape": shape_name, "mesh": name, "chips": chips,
         "batch": shape.global_batch, "seq_len": shape.seq_len,
         "kind": shape.kind, "params": params_n, "active_params": active_n,
         "t_count_s": round(t_count, 2),
@@ -180,23 +328,34 @@ def lower_cell(arch: str, shape_name: str, *, backend: str = "chunked",
         "roofline": rep.row(),
         "step_bound_s": rep.step_time_s,
     }
+    if mesh is not None:
+        info["layout"], info["reference_layout"] = _layouts(cfg, shape,
+                                                            mesh)
+        info["wire_bytes"] = rc["wire_bytes"]
+        info["collective_bw"] = H100_SCALEOUT_BW
     return counts, info
+
+
+def mesh_name(multi_pod: bool) -> str:
+    return "2x16x16" if multi_pod else "16x16"
 
 
 def run_cell(arch: str, shape_name: str, **kw) -> Dict[str, Any]:
     """One cell's JSON record: ``status`` ``ok`` (with ``lower_cell``'s
     info), ``n/a`` (with the reason) or ``fail`` (with the traceback)."""
     cfg = kw.get("cfg_override") or get_config(arch)
+    mp = kw.get("multi_pod")
+    name = MESH if mp is None else mesh_name(mp)
     ok, why = shape_applies(cfg, shape_name)
     if not ok:
-        return {"arch": arch, "shape": shape_name, "mesh": MESH,
+        return {"arch": arch, "shape": shape_name, "mesh": name,
                 "status": "n/a", "reason": why}
     try:
         _, info = lower_cell(arch, shape_name, **kw)
         info["status"] = "ok"
         return info
     except Exception:  # noqa: BLE001 — report into the table
-        return {"arch": arch, "shape": shape_name, "mesh": MESH,
+        return {"arch": arch, "shape": shape_name, "mesh": name,
                 "status": "fail", "error": traceback.format_exc()}
 
 
@@ -212,17 +371,22 @@ def main(argv=None) -> int:
     ap.add_argument("--no-extrapolate", action="store_true")
     ap.add_argument("--fit-only", action="store_true")
     ap.add_argument("--skip-existing", action="store_true")
+    ap.add_argument("--multi-pod", choices=["off", "on", "both"],
+                    help="count rank 0 of the 16x16 mesh (off), of "
+                         "2x16x16 (on) or of both; one H100 without it")
     args = ap.parse_args(argv)
     if not args.all and not (args.arch and args.shape):
         ap.error("give --arch and --shape, or --all")
 
     cells = ([(a, s) for a in ARCH_IDS for s in SHAPES] if args.all
              else [(args.arch, args.shape)])
+    pods = {None: [None], "off": [False], "on": [True],
+            "both": [False, True]}[args.multi_pod]
     os.makedirs(args.out, exist_ok=True)
     failures = 0
     t_all = time.time()
-    for arch, shape in cells:
-        tag = f"{arch}_{shape}_{MESH}"
+    for (arch, shape), mp in ((c, mp) for c in cells for mp in pods):
+        tag = f"{arch}_{shape}_{MESH if mp is None else mesh_name(mp)}"
         path = os.path.join(args.out, tag + ".json")
         if args.skip_existing and os.path.exists(path):
             with open(path) as f:
@@ -232,7 +396,7 @@ def main(argv=None) -> int:
         rec = run_cell(arch, shape, backend=args.backend,
                        remat=bool(args.remat), microbatch=args.microbatch,
                        extrapolate=not args.no_extrapolate,
-                       fit_only=args.fit_only)
+                       fit_only=args.fit_only, multi_pod=mp)
         with open(path, "w") as f:
             json.dump(rec, f, indent=1, default=str)
         if rec["status"] == "n/a":
@@ -244,8 +408,9 @@ def main(argv=None) -> int:
         else:
             r = rec["roofline"]
             print(f"[ok  ] {tag}: count={rec['t_count_s']}s "
-                  f"dom={r['dominant']} c/m={r['compute_s']:.4f}/"
-                  f"{r['memory_s']:.4f}s useful={r['useful_ratio']:.3f} "
+                  f"dom={r['dominant']} c/m/coll={r['compute_s']:.4f}/"
+                  f"{r['memory_s']:.4f}/{r['collective_s']:.4f}s "
+                  f"useful={r['useful_ratio']:.3f} "
                   f"mfu={r['mfu_bound']:.3f} peak={rec['peak_gib']:.2f}GiB "
                   f"fits={rec['fits']}", flush=True)
     print(f"dry-run done in {time.time() - t_all:.1f}s, {failures} failures")

@@ -6,8 +6,8 @@ is the counterpart of the reference's ``"pallas"``: it goes through
 ``kernels/flash_attention/ops.py``, which launches the hand-written CUDA
 kernel for CUDA tensors and runs the plain version for CPU tensors.  The
 reference's sharding hints (``shard_hint`` on k/v and on the decode query)
-only place data on a device mesh; on one device they are no-ops, so the
-port has none.
+only constrain GSPMD's layout; the port's activations are rank-local on a
+mesh too, so it has none (``sharding/rules.py``).
 """
 from __future__ import annotations
 

@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from ..device import resolve
+from ..sharding.rules import fsdp_params
 from . import attention as attn_mod
 from .layers import (MLP, Attention, Embed, ModelConfig, RMSNorm, Unembed,
                      embed, fill_normal, mlp, out_project, qkv_project,
@@ -102,12 +103,13 @@ def encdec_init(gen: torch.Generator, cfg: ModelConfig) -> EncDecLM:
 
 def _enc_layer(lp: EncLayer, x: torch.Tensor, cfg: ModelConfig, *,
                backend: str) -> torch.Tensor:
+    attn = fsdp_params(lp.attn)
     h = rmsnorm(lp.ln1, x)
-    q, k, v = qkv_project(lp.attn, h, cfg)
+    q, k, v = qkv_project(attn, h, cfg)
     q, k = _rope(cfg, q, k, 0)
     o = attn_mod.attention(q, k, v, causal=False, backend=backend)
-    x = x + out_project(lp.attn, o)
-    return x + mlp(lp.mlp, rmsnorm(lp.ln2, x))
+    x = x + out_project(attn, o)
+    return x + mlp(fsdp_params(lp.mlp), rmsnorm(lp.ln2, x))
 
 
 def encode(params: EncDecLM, enc_embeds: torch.Tensor, cfg: ModelConfig,
@@ -130,12 +132,14 @@ def _dec_layer(lp: DecLayer, x: torch.Tensor, enc_out: torch.Tensor,
     ``cache`` (this layer's k, v, enc_k and enc_v views) it also writes
     the self-attention's k/v at [0, S) and the cross K/V of ``enc_out``,
     in place."""
+    self_attn = fsdp_params(lp.self_attn)
+    cross_attn = fsdp_params(lp.cross_attn)
     h = rmsnorm(lp.ln1, x)
-    q, k, v = qkv_project(lp.self_attn, h, cfg)
+    q, k, v = qkv_project(self_attn, h, cfg)
     q, k = _rope(cfg, q, k, 0)
     o = attn_mod.attention(q, k, v, causal=True, backend=backend)
-    x = x + out_project(lp.self_attn, o)
-    qx, ek, ev = qkv_project(lp.cross_attn, rmsnorm(lp.ln_x, x), cfg,
+    x = x + out_project(self_attn, o)
+    qx, ek, ev = qkv_project(cross_attn, rmsnorm(lp.ln_x, x), cfg,
                              kv_x=enc_out)
     if cache is not None:
         kc, vc, ekc, evc = cache
@@ -145,8 +149,8 @@ def _dec_layer(lp: DecLayer, x: torch.Tensor, enc_out: torch.Tensor,
         ekc.copy_(ek)
         evc.copy_(ev)
     o = attn_mod.attention(qx, ek, ev, causal=False, backend=backend)
-    x = x + out_project(lp.cross_attn, o)
-    return x + mlp(lp.mlp, rmsnorm(lp.ln2, x))
+    x = x + out_project(cross_attn, o)
+    return x + mlp(fsdp_params(lp.mlp), rmsnorm(lp.ln2, x))
 
 
 def encdec_apply(params: EncDecLM, batch: Dict[str, torch.Tensor],
@@ -235,18 +239,20 @@ def encdec_decode_step(params: EncDecLM, tokens: torch.Tensor, cache: Cache,
                          device=x.device)
     for i, lp in enumerate(params.dec_layers):
         kc, vc = cache["k"][i], cache["v"][i]
+        self_attn = fsdp_params(lp.self_attn)
+        cross_attn = fsdp_params(lp.cross_attn)
         h = rmsnorm(lp.ln1, x)
-        q, k, v = qkv_project(lp.self_attn, h, cfg)
+        q, k, v = qkv_project(self_attn, h, cfg)
         q, k = _rope(cfg, q, k, pos)
         _scatter_kv(kc, k, pos)
         _scatter_kv(vc, v, pos)
         o = attn_mod.decode_attention(q, kc, vc, pos + 1)
-        x = x + out_project(lp.self_attn, o)
-        qx, _, _ = qkv_project(lp.cross_attn, rmsnorm(lp.ln_x, x), cfg)
+        x = x + out_project(self_attn, o)
+        qx, _, _ = qkv_project(cross_attn, rmsnorm(lp.ln_x, x), cfg)
         o = attn_mod.decode_attention(qx, cache["enc_k"][i],
                                       cache["enc_v"][i], enc_len)
-        x = x + out_project(lp.cross_attn, o)
-        x = x + mlp(lp.mlp, rmsnorm(lp.ln2, x))
+        x = x + out_project(cross_attn, o)
+        x = x + mlp(fsdp_params(lp.mlp), rmsnorm(lp.ln2, x))
     x = rmsnorm(params.final_norm, x)
     logits = unembed(params.unembed, params.embed, x, cfg)
     return logits, {**cache, "len": cache["len"] + 1}

@@ -21,11 +21,14 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..sharding.rules import replicate_hint
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The reference's config, its fields and defaults, but for ``fsdp``
-    (its choice of mesh sharding, which a single device does not make)."""
+    (its choice of mesh sharding: on a mesh the port always gathers the
+    weights at use, ``sharding/rules.py::fsdp_params``)."""
 
     name: str = "model"
     family: str = "dense"  # dense | moe | ssm | hybrid | vlm | audio
@@ -168,7 +171,7 @@ def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * p.scale.float()).to(x.dtype)
+    return (y * replicate_hint(p.scale).float()).to(x.dtype)
 
 
 def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
@@ -245,7 +248,7 @@ def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, p.tok)
+    return F.embedding(tokens, replicate_hint(p.tok))
 
 
 def unembed(p: Unembed, emb: Embed, x: torch.Tensor,
@@ -256,6 +259,9 @@ def unembed(p: Unembed, emb: Embed, x: torch.Tensor,
     operands go to float32 for this one product: a bf16 x bf16 product is
     exact in float32, and on the card float32 matmuls run in full float32
     unless the caller enables TF32.  At qwen3-4b's width that is a 1.56 GB
-    float32 transient of the [2560, 151936] weight per call."""
-    w = emb.tok.T if cfg.tie_embeddings else p.w
+    float32 transient of the [2560, 151936] weight per call.  On a mesh
+    the weight is all-gathered at use (``replicate_hint``), as the
+    embedding is."""
+    w = replicate_hint(emb.tok).T if cfg.tie_embeddings else \
+        replicate_hint(p.w)
     return x.float() @ w.float()

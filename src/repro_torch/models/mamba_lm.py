@@ -4,8 +4,9 @@ Port of ``src/repro/models/mamba_lm.py``.
 Mamba1 layers have no separate MLP: the block is the layer.  The
 reference scans over stacked [L, ...] layer params; the port keeps one
 ``SSMLayer`` per layer in an ``nn.ModuleList`` and loops over them (the
-reference's ``fsdp_params`` and ``activation_hint`` only place data and
-have no counterpart here; its ``jax.checkpoint`` is ``remat``).
+reference's ``fsdp_params`` runs in ``ssm.mamba_mix``, its
+``activation_hint`` has no counterpart on the port's rank-local activations,
+and its ``jax.checkpoint`` is ``remat``).
 
 The decode cache keeps the reference's layout, ``{"h": [L,B,Di,N] f32,
 "conv": [L,B,K-1,Di] f32, "len": [B] int32}``; prefill and decode write

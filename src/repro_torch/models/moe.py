@@ -4,10 +4,12 @@ Port of ``src/repro/models/moe.py``.
 Dispatch scatters the (token, choice) pairs into an ``[E, C, D]`` capacity
 buffer (C = ``_capacity``), so the expert FFN is one batched product over
 all experts; pairs past an expert's capacity are dropped, and the router
-keeps the reference's auxiliary load-balancing loss.  The reference's
-expert-parallel branch (``moe_ep``, taken only under a JAX device mesh) is
-not ported (ROADMAP queue 1 item 12b): the port always runs the dense path
-below, the reference's path on one device.
+keeps the reference's auxiliary load-balancing loss.  As in the
+reference, ``moe_apply`` takes the expert-parallel path (``moe_ep.py``:
+explicit all-to-alls over the mesh's ``"model"`` axis) whenever an
+ambient mesh and the batch allow it, and the dense path below otherwise;
+on a mesh the dense path all-gathers the expert banks first
+(``fsdp_params``).
 
 Exactness of the routing: the router runs in float32 (on the card with
 TF32 off, PyTorch's default), the top k comes from a stable descending
@@ -33,6 +35,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from ..sharding.rules import fsdp_params
 from .layers import ModelConfig, _param, silu
 
 
@@ -80,39 +83,60 @@ def _expert_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a, w, out_dtype=torch.float32)
 
 
-def route(p: MoE, xt: torch.Tensor, cfg: ModelConfig, cap: int):
-    """The router over xt [T, D]: (gate [T, k] float32, expert [T, k],
-    keep [T*k] bool, slot [T*k], aux loss float32 scalar)."""
-    t = xt.shape[0]
-    e, k = cfg.n_experts, cfg.top_k
-    dev = xt.device
-    probs = torch.softmax(xt.float() @ p.router, dim=-1)         # [T, E]
+def top_k(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig):
+    """The router over xt [T, D]: (probs [T, E], gate [T, k] normalised,
+    expert [T, k]), all float32 but ``expert``."""
+    probs = torch.softmax(xt.float() @ router, dim=-1)           # [T, E]
     gate, expert = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate, expert = gate[:, :k], expert[:, :k]
+    gate, expert = gate[:, :cfg.top_k], expert[:, :cfg.top_k]
     gate = gate / torch.clamp_min(gate.sum(dim=-1, keepdim=True), 1e-9)
+    return probs, gate, expert
 
-    # Switch-style load balance: E * sum_e f_e * P_e
-    flat_e = expert.reshape(-1)                                  # [T*k]
-    ones = torch.ones(t * k, dtype=torch.float32, device=dev)
-    ce = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
-        0, flat_e, ones) / (t * k)
-    aux = e * torch.sum(probs.mean(dim=0) * ce)
 
-    # each pair's rank within its expert, in (token, choice) order
-    counts = torch.zeros(e, dtype=torch.int64, device=dev).index_add_(
-        0, flat_e, torch.ones_like(flat_e))
+def aux_loss(probs: torch.Tensor, expert: torch.Tensor,
+             n_experts: int) -> torch.Tensor:
+    """Switch-style load balance: E * sum_e f_e * P_e."""
+    flat_e = expert.reshape(-1)
+    ones = torch.ones(flat_e.shape[0], dtype=torch.float32,
+                      device=flat_e.device)
+    ce = torch.zeros(n_experts, dtype=torch.float32,
+                     device=flat_e.device).index_add_(0, flat_e, ones) \
+        / flat_e.shape[0]
+    return n_experts * torch.sum(probs.mean(dim=0) * ce)
+
+
+def rank_by(dest: torch.Tensor, n_bins: int, cap: int):
+    """Each element's rank within its bin, in index order (a stable
+    argsort): (slot = dest * cap + rank, or dest * cap past the capacity;
+    keep = rank < cap)."""
+    n = dest.shape[0]
+    counts = torch.zeros(n_bins, dtype=torch.int64,
+                         device=dest.device).index_add_(
+        0, dest, torch.ones_like(dest))
     offsets = torch.cumsum(counts, 0) - counts                   # exclusive
-    order = torch.argsort(flat_e, stable=True)
-    rank_sorted = torch.arange(t * k, device=dev) - offsets[flat_e[order]]
+    order = torch.argsort(dest, stable=True)
+    rank_sorted = torch.arange(n, device=dest.device) - offsets[dest[order]]
     rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
     keep = rank < cap
-    slot = flat_e * cap + torch.where(keep, rank, 0)
-    return gate, expert, keep, slot, aux
+    return dest * cap + torch.where(keep, rank, 0), keep
+
+
+def route(p: MoE, xt: torch.Tensor, cfg: ModelConfig, cap: int):
+    """The router over xt [T, D]: (gate [T, k] float32, expert [T, k],
+    keep [T*k] bool, slot [T*k], aux loss float32 scalar); each pair's
+    slot is its rank within its expert in (token, choice) order."""
+    probs, gate, expert = top_k(p.router, xt, cfg)
+    slot, keep = rank_by(expert.reshape(-1), cfg.n_experts, cap)
+    return gate, expert, keep, slot, aux_loss(probs, expert, cfg.n_experts)
 
 
 def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, D] -> (out [B, S, D] in x's dtype, aux loss float32)."""
+    from .moe_ep import ep_applicable, moe_apply_ep
+    if ep_applicable(cfg, x):
+        return moe_apply_ep(p, x, cfg)
+    p = fsdp_params(p)
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k

@@ -30,6 +30,7 @@ from torch import nn
 from ..device import resolve
 from ..kernels.selective_scan import ops as scan_ops
 from ..kernels.selective_scan.ref import fused_scan_ref
+from ..sharding.rules import fsdp_params
 from .layers import ModelConfig, _param, fill_normal, silu
 
 SCAN_BACKENDS = ("kernel", "chunked")
@@ -141,7 +142,9 @@ def mamba_mix(p: Mamba, x: torch.Tensor, cfg: ModelConfig, h0: torch.Tensor,
               backend: str = "kernel") -> Tuple[torch.Tensor, State]:
     """The block over x [B,S,D] from state (h0 [B,Di,N], conv_state
     [B,K-1,Di] or zeros when None) -> (y [B,S,D], the state after the last
-    position: {"h", "conv"}, float32, new tensors)."""
+    position: {"h", "conv"}, float32, new tensors).  On a mesh the
+    block's weights are all-gathered at use (``fsdp_params``)."""
+    p = fsdp_params(p)
     xi = x @ p.in_x                                              # [B,S,Di]
     z = x @ p.in_z
     xc = silu(_causal_conv(xi, p.conv_w, p.conv_b, conv_state))

@@ -31,6 +31,7 @@ from torch import nn
 
 from ..device import resolve
 from . import attention as attn_mod
+from ..sharding.rules import fsdp_params
 from .layers import (MLP, Attention, Embed, ModelConfig, RMSNorm, Unembed,
                      apply_mrope, apply_rope, embed, fill_normal, mlp,
                      out_project, qkv_project, remat_call, rmsnorm, unembed)
@@ -122,7 +123,7 @@ def ffn(layer: nn.Module, h: torch.Tensor, cfg: ModelConfig
     MLP (no device tensor a layer on the serving path, which drops it)."""
     if hasattr(layer, "moe"):
         return moe_apply(layer.moe, h, cfg)
-    return mlp(layer.mlp, h), 0.0
+    return mlp(fsdp_params(layer.mlp), h), 0.0
 
 
 def _positions(s: int, offset, device) -> torch.Tensor:
@@ -155,11 +156,12 @@ def layer_apply(p: Layer, x: torch.Tensor, cfg: ModelConfig, *,
                 backend: str = "chunked", pos3=None
                 ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
     """Returns (x_out, aux loss)."""
+    attn = fsdp_params(p.attn)
     h = rmsnorm(p.ln1, x)
-    q, k, v = qkv_project(p.attn, h, cfg)
+    q, k, v = qkv_project(attn, h, cfg)
     q, k = _rope(cfg, q, k, 0, pos3)
     o = attn_mod.attention(q, k, v, causal=True, backend=backend)
-    x = x + out_project(p.attn, o)
+    x = x + out_project(attn, o)
     m, aux = ffn(p, rmsnorm(p.ln2, x), cfg)
     return x + m, aux
 
@@ -232,8 +234,9 @@ def _cached_layer(p: Layer, kc: torch.Tensor, vc: torch.Tensor,
     are this layer's [B, Smax, KV, Dh] views of the cache, updated in
     place.  ``pos3`` goes to ``_rope``.  The feed-forward's aux loss is
     dropped, as the reference's is."""
+    attn = fsdp_params(p.attn)
     h = rmsnorm(p.ln1, x)
-    q, k, v = qkv_project(p.attn, h, cfg)
+    q, k, v = qkv_project(attn, h, cfg)
     q, k = _rope(cfg, q, k, offset, pos3)
     s = x.shape[1]
     if isinstance(offset, int):
@@ -250,7 +253,7 @@ def _cached_layer(p: Layer, kc: torch.Tensor, vc: torch.Tensor,
     else:
         o = attn_mod.attention(q, k, v, causal=True, q_offset=offset,
                                backend=backend)
-    x = x + out_project(p.attn, o)
+    x = x + out_project(attn, o)
     return x + ffn(p, rmsnorm(p.ln2, x), cfg)[0]
 
 

@@ -132,8 +132,12 @@ def leaf_map(model: torch.nn.Module, cfg: ModelConfig) -> Dict[str, Leaf]:
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A tensor on any device as a numpy array on the host, bf16 widened
-    to float32 (exact: narrowing it back gives the same bits)."""
+    to float32 (exact: narrowing it back gives the same bits); a DTensor
+    as its whole value (``full_tensor``: a collective, so every rank of
+    its mesh calls it)."""
     t = t.detach()
+    if hasattr(t, "full_tensor"):
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.cpu().numpy()

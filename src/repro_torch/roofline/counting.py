@@ -67,22 +67,28 @@ def _rounded(nbytes: int) -> int:
     return -(-nbytes // BLOCK_BYTES) * BLOCK_BYTES
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (what this rank holds), else ``t``."""
+    return getattr(t, "_local_tensor", t)
+
+
 def _nbytes(t: torch.Tensor) -> int:
+    t = _local(t)
     return t.numel() * t.element_size()
 
 
 def tensors_of(obj: Any, seen=None):
     """Every tensor reachable from ``obj``: tensors, modules (parameters,
     buffers and their ``.grad``), dicts, lists and tuples (NamedTuples
-    included)."""
+    included); a DTensor as its local shard."""
     seen = set() if seen is None else seen
     if id(obj) in seen:
         return
     seen.add(id(obj))
     if isinstance(obj, torch.Tensor):
-        yield obj
+        yield _local(obj)
         if obj.grad is not None:
-            yield obj.grad
+            yield _local(obj.grad)
     elif isinstance(obj, torch.nn.Module):
         for t in (*obj.parameters(), *obj.buffers()):
             yield from tensors_of(t, seen)
@@ -114,7 +120,7 @@ class LiveBytes(TorchDispatchMode):
 
     def hold(self, t: torch.Tensor) -> None:
         """Count ``t``'s storage as live until its last reference goes."""
-        st = t.untyped_storage()
+        st = _local(t).untyped_storage()
         key = id(st)
         if key in self._held:
             return

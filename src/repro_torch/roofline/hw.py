@@ -27,3 +27,12 @@ V5E = HwSpec()
 # i.e. 25 GB/s a link a direction.  The same peaks as ``chip_smoke.py``'s.
 H100 = HwSpec(name="h100-sxm", peak_flops_bf16=989e12, hbm_bw=3.35e12,
               ici_link_bw=25e9, ici_links=18, hbm_bytes=80e9)
+
+# What one GPU of a multi-node H100 mesh gets a direction for a collective
+# whose ring leaves its node: one ConnectX-7 port at 400 Gb/s = 50 GB/s
+# (NVIDIA DGX H100 user guide: eight single-port ConnectX-7 400 Gb/s
+# adapters for the compute fabric, one a GPU).  A 16 x 16 mesh spans 32
+# nodes of 8 GPUs, so the rings of both its axes cross nodes and this,
+# not NVLink's 450 GB/s a direction inside a node, bounds them; the mesh
+# dry run's ``collective_s`` divides by it.
+H100_SCALEOUT_BW = 50e9

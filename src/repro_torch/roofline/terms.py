@@ -11,8 +11,11 @@ The two count different things: ``FlopCounterMode`` counts the products
 scan's exps), which XLA counts; the bytes are each eager op's inputs and
 outputs, where XLA counts what its fused kernels move.  So ``compute_s``
 is a floor of the products alone and ``memory_s`` the traffic of an
-unfused eager run.  One device moves no wire bytes: ``collective_s`` is
-0 until a mesh exists (the reference's ``hlo.py`` goes with it).
+unfused eager run.  The wire bytes are the ring formulas of
+``collectives.py`` over the functional collectives recorded in the run
+(none on one device).  ``collective_s`` divides them by ``link_bw``,
+``hw.ici_link_bw`` unless the caller names another (the mesh dry run
+passes ``hw.H100_SCALEOUT_BW``: see there).
 
 MODEL_FLOPS uses 6·N·D (train) or 2·N·D (inference) with N = active
 params, D = tokens, plus the attention context term: the ratio
@@ -22,10 +25,11 @@ MODEL_FLOPS / counted FLOPs exposes remat and dispatch overhead (about
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
+from .collectives import collective_stats
 from .counting import Counts
 from .hw import H100, HwSpec
 
@@ -87,25 +91,29 @@ class RooflineReport:
         }
 
 
-def raw_counts(counts: Counts) -> Dict[str, Any]:
-    """(flops, bytes, wire_bytes, collective counts) of one counted call;
-    one device has no collectives."""
+def raw_counts(counts: Counts, records=(), *, num_partitions: int = 1
+               ) -> Dict[str, Any]:
+    """(flops, bytes, wire_bytes, collective counts) of one counted call
+    and the collectives it dispatched (``collectives.record_collectives``;
+    none on one device)."""
+    st = collective_stats(records, num_partitions=num_partitions)
     return {"flops": counts.flops, "bytes": counts.bytes,
-            "wire_bytes": 0.0, "counts": {}}
+            "wire_bytes": st.wire_bytes, "counts": st.counts}
 
 
 def analyze_raw(*, flops: float, byts: float, wire: float,
                 counts: Dict[str, int], arch: str, shape: str,
                 mesh_name: str, chips: int, model_flops: float,
                 peak_bytes: float = float("nan"),
-                hw: HwSpec = H100) -> RooflineReport:
+                hw: HwSpec = H100,
+                link_bw: Optional[float] = None) -> RooflineReport:
     return RooflineReport(
         arch=arch, shape=shape, mesh=mesh_name, chips=chips,
         flops_per_chip=flops, bytes_per_chip=byts,
         wire_bytes_per_chip=wire,
         compute_s=flops / hw.peak_flops_bf16,
         memory_s=byts / hw.hbm_bw,
-        collective_s=wire / hw.ici_link_bw,
+        collective_s=wire / (link_bw or hw.ici_link_bw),
         model_flops_global=model_flops,
         peak_bytes_per_chip=peak_bytes,
         collectives=counts, hw=hw)

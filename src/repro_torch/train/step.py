@@ -23,14 +23,16 @@ Batch = Dict[str, torch.Tensor]
 
 def make_train_step(api: ModelApi, opt_cfg: optim.AdamWConfig, *,
                     backend: str = "chunked", remat: bool = True,
-                    microbatch: int = 0) -> Callable:
+                    microbatch: int = 0,
+                    update: Callable = optim.update) -> Callable:
     """The data-parallel step on one device; with ``microbatch`` > 1 the
     batch is split along its leading axis into that many microbatches
     whose gradients are summed in float32 buffers and divided by their
     count, as the reference sums into float32 zeros (a bf16 ``.grad``
     accumulated across backward passes would round every partial sum to
     bf16); the metrics are then the last microbatch's and the loss the
-    mean."""
+    mean.  ``update`` is the optimizer's step (``zero.update`` on a
+    mesh, with the layouts bound)."""
 
     def grads_of(params, batch: Batch) -> Tuple[torch.Tensor, Batch]:
         out = api.apply(params, {k: v for k, v in batch.items()
@@ -66,8 +68,7 @@ def make_train_step(api: ModelApi, opt_cfg: optim.AdamWConfig, *,
         else:
             loss, met = grads_of(params, batch)
             grads = {name: grad_of(p) for name, p in params.named_parameters()}
-        params, opt_state, omet = optim.update(opt_cfg, grads, opt_state,
-                                               params)
+        params, opt_state, omet = update(opt_cfg, grads, opt_state, params)
         params.zero_grad(set_to_none=True)
         return params, opt_state, {"loss": loss, **met, **omet}
 

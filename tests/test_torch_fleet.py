@@ -1,8 +1,9 @@
 """The port's fleet engine (``repro_torch.api.fleet``, DESIGN.md §9)
 against its own serial run and the reference's: every case of
 tests/test_fleet.py re-run on the port (the sharded case becomes "more
-than one device raises", ROADMAP queue 1 item 12; the slow leaf-spine-xl
-case runs on the card, ``chip_smoke.py`` phase 11(b)), the cohort
+than one device without a group is capped at one"; the lanes spread over
+ranks in tests/test_torch_fleet_mesh.py; the slow leaf-spine-xl case runs
+on the card, ``chip_smoke.py`` phase 11(b)), the cohort
 bookkeeping beside the reference's on the same inputs, and the port's
 ``run_fleet`` held against the reference's ``run_fleet`` on a refilling
 grid with failures and on a chaos-plus-controller cohort with clone slots.
@@ -109,17 +110,18 @@ def test_fleet_identical_length_divergent_bucket():
 
 
 def test_fleet_devices_beyond_one_raise():
-    """The reference spreads lanes over a fleet mesh with shard_map; the
-    port runs on one device: ``devices=1`` is the plain fleet, more
-    raises, citing ROADMAP queue 1 item 12."""
+    """Without a process group the fleet runs on this process alone:
+    ``devices=1`` is the plain fleet, and more is capped at the world of
+    one, as the reference caps at ``jax.local_device_count()`` (the lanes
+    spread over ranks in tests/test_torch_fleet_mesh.py).  The name dates
+    from when ``devices`` above one raised; that case now caps."""
     exp = Experiment("paper-fabric", POLICIES, seeds=SEEDS, device="cpu")
     serial = exp.run()
-    fleet, stats = exp.run_fleet(width=8, chunk_steps=16, devices=1,
-                                 return_stats=True)
-    assert_results_identical(serial, fleet, "devices=1: ")
-    assert stats.devices == 1
-    with pytest.raises(NotImplementedError, match="item 12"):
-        exp.run_fleet(devices=2)
+    for devices in (1, 2):
+        fleet, stats = exp.run_fleet(width=8, chunk_steps=16,
+                                     devices=devices, return_stats=True)
+        assert_results_identical(serial, fleet, f"devices={devices}: ")
+        assert stats.devices == 1
 
 
 # ---------------------------------------------------------------------------
