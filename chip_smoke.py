@@ -269,6 +269,24 @@ Phases, each printed with its wall time:
    ``python3 chip_smoke.py --ep-mesh N`` runs 19(b) alone over N cards of
    one host (one NCCL rank a card, a (1, N) mesh) and prints each rank's
    report.
+20. the reference's serving layouts on CUDA (ROADMAP item 12c): (a) the
+   flash kernel on the sequence-parallel prefill's shapes, qwen3-4b's
+   heads over LONG_PROMPT positions cut into 4 rank slices (512 query rows
+   at ``q_offset`` 0, 512, 1024, 1536, causal, against all 2048 keys),
+   each slice against the same rows of one whole call and against the
+   plain version (bf16 2e-2), whether bitwise, and each slice's device
+   time beside its bound; (b) on a one-rank NCCL (1, 1) ("data", "model")
+   mesh, qwen3-4b and falcon-mamba-7b at their published configs (random
+   bf16 weights from seed 0) through a 2048-token prefill and 8
+   tensor-parallel greedy decode ticks (``fsdp=False``, the weights placed
+   by ``param_specs``, the cache by ``cache_specs_tree``, the fused scan
+   on the Mamba path), against the same run with no mesh: equal greedy
+   tokens, logits within ``LOGIT_TOL`` / ``MAMBA_LOGIT_TOL``, the same
+   kernel launches, the collectives by kind, each path's prefill and tick
+   ms.  ``python3 chip_smoke.py --layout-mesh N`` runs 20(b) over N cards
+   (one NCCL rank a card, a (1, N) mesh: qwen3-4b's prefill then runs its
+   sequence over "model"), every rank against one card's run on its own
+   card and its wire bytes against the dry run's count on fake tensors.
 
 Then one JSON line with every kernel's numbers and design, the card's
 name and power limit, and last the line ``{"ok": true, "device":
@@ -754,6 +772,13 @@ def counted(kern, fn):
     after = kern.launch_counts()
     return out, {k: after[k] - before[k] for k in after
                  if after[k] != before[k]}
+
+
+def launched(kern, fn):
+    """(fn's result, how many launches of ``kern``'s kernels fn made)."""
+    before = kern.launch_count()
+    out = fn()
+    return out, kern.launch_count() - before
 
 
 def max_abs_err(got, want) -> float:
@@ -2641,6 +2666,361 @@ def mesh_phase(dev) -> dict:
     return report
 
 
+# phase 20: the reference's serving layouts (ROADMAP item 12c).  (a) flash
+# at the sequence-parallel prefill's shapes: qwen3-4b's heads over
+# LONG_PROMPT positions cut into LAYOUT_SLICES rank slices; (b) LAYOUT_TICKS
+# tensor-parallel decode ticks after a LONG_PROMPT-token prefill at the
+# published widths of a transformer and a Mamba model, against the same run
+# with no mesh, each held to its long-prefill tolerance (5 % of the largest
+# |logit|)
+LAYOUT_SLICES = 4
+LAYOUT_TICKS = 8
+LAYOUT_ARCHS = (("qwen3-4b", LOGIT_TOL),
+                ("falcon-mamba-7b", MAMBA_LOGIT_TOL))
+
+
+def flash_sp_slices(floor_ms, dev) -> dict:
+    """Phase 20(a): the bf16 flash kernel on one rank's slice of a
+    sequence-parallel prefill at a time: LONG_PROMPT / LAYOUT_SLICES query
+    rows at ``q_offset`` r * that, causal, against all LONG_PROMPT keys,
+    held against the same rows of one whole call and against the plain
+    version (bf16 2e-2, phase 6's), with each slice's device time (the last
+    slice does the most work) beside its bound."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     naive_attention)
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    gen = torch.Generator(device="cpu").manual_seed(20)
+    s, h, kv, dh = LONG_PROMPT, 32, 8, 128
+    q, k, v = (torch.randn(1, s, n, dh, generator=gen).to(
+        torch.bfloat16).to(dev) for n in (h, kv, kv))
+    whole = flash_attention(q, k, v, causal=True)
+    n = s // LAYOUT_SLICES
+    tol = FA_TOL["bfloat16"]
+    out = {"shape": {"q": [1, n, h, dh], "kv": [1, s, kv, dh],
+                     "dtype": "bfloat16", "causal": True}, "slices": []}
+    for r in range(LAYOUT_SLICES):
+        qr = q[:, r * n:(r + 1) * n]
+
+        def kern(qr=qr, r=r):
+            return flash_attention(qr, k, v, causal=True, q_offset=r * n)
+
+        def plain(qr=qr, r=r):
+            return naive_attention(qr, k, v, causal=True, q_offset=r * n)
+        got, made = launched(fa_kernel, kern)
+        torch.cuda.synchronize()
+        rows = whole[:, r * n:(r + 1) * n]
+        err_plain = max_abs_err(got.float(), plain().float())
+        err_whole = max_abs_err(got.float(), rows.float())
+        check(made == 1, f"flash slice {r}: {made} launches")
+        check(err_plain <= tol and err_whole <= tol,
+              f"flash slice {r}: {err_plain} from plain, {err_whole} from "
+              f"the whole call (tol {tol})")
+        nbytes, ops = attention_work(1, n, s, h, kv, dh, True, r * n, 2)
+        b_ms = max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_BF16_OPS_PER_S) * 1e3
+        one = {"rank": r, "q_offset": r * n,
+               "bitwise_to_whole": bool(torch.equal(got, rows)),
+               "max_abs_err_whole": err_whole, "max_abs_err": err_plain,
+               "ms": fenced_ms(kern) - floor_ms,
+               "plain_ms": fenced_ms(plain) - floor_ms,
+               "bound_ms": b_ms, "bytes": nbytes, "operations": ops,
+               "bound_by": ("bytes" if nbytes / PEAK_BYTES_PER_S
+                            > ops / PEAK_BF16_OPS_PER_S else "operations")}
+        out["slices"].append(one)
+        print(f"flash SP slice {r} of {LAYOUT_SLICES} (q [1,{n},{h},{dh}] "
+              f"at q_offset {r * n} over {s} keys): bitwise to the whole "
+              f"call's rows {one['bitwise_to_whole']} (max err "
+              f"{err_whole}), max err from plain {err_plain} (tol {tol}); "
+              f"kernel {one['ms']} ms, plain {one['plain_ms']} ms, bound "
+              f"{b_ms} ms ({one['bound_by']})")
+    return out
+
+
+def _shards(tree, mesh):
+    """A cache as this rank's shards, ``cache_specs_tree``'s layout."""
+    from repro_torch.sharding import rules
+
+    def local(t, spec):
+        if isinstance(t, dict):
+            return {k: local(t[k], spec[k]) for k in t}
+        return t[rules.local_slices(t.shape, spec, mesh)].clone()
+    return local(tree, rules.cache_specs_tree(tree, mesh))
+
+
+def layout_compare(dev, mesh, arch: str, tol: float) -> dict:
+    """Phase 20(b) and ``--layout-mesh`` on one rank: ``arch`` at its
+    published config (random bf16 weights, seed 0, on the card), a
+    LONG_PROMPT-token prompt (seed 0) through the prefill with the kernel
+    backend and LAYOUT_TICKS greedy decode ticks, first with no mesh, then
+    with the weights placed on ``mesh`` by ``param_specs``: the prefill
+    under ``use_mesh(mesh, global_batch=1)`` (the sequence over "model"
+    in the transformer families when "model" has more than one rank), the
+    ticks tensor parallel (``fsdp=False``) over a cache placed by
+    ``cache_specs_tree``.  The greedy tokens must be equal and the
+    prefill's and last tick's logits within ``tol`` of the largest
+    |logit|; with each path's prefill and tick ms, kernel launches, and
+    the mesh path's collectives by kind and wire bytes."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.selective_scan import kernel as scan_kernel
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import get_model
+    from repro_torch.roofline.collectives import (collective_stats,
+                                                  record_collectives)
+    from repro_torch.sharding import rules
+
+    cfg = get_config(arch)
+    api = get_model(cfg)
+    tp_api = get_model(dataclasses.replace(cfg, fsdp=False))
+    model = api.init(0, device=dev)
+    prompt = torch.randint(0, cfg.vocab, (1, LONG_PROMPT), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               0), dtype=torch.int32)
+    max_len = LONG_PROMPT + LAYOUT_TICKS
+
+    def run(on_mesh: bool) -> dict:
+        step_api = tp_api if on_mesh else api
+
+        def ctx(**kw):
+            return use_mesh(mesh, **kw) if on_mesh else \
+                contextlib.nullcontext()
+
+        def fresh():
+            c = api.init_cache(1, max_len, device=dev)
+            return _shards(c, mesh) if on_mesh else c
+
+        cache = fresh()
+        with ctx(global_batch=1), record_collectives() as pre:
+            ((logits, cache), scans), fa = launched(
+                fa_kernel, lambda: launched(scan_kernel, lambda: api.prefill(
+                    model, {"tokens": prompt}, cache, backend="kernel")))
+        first = logits.float().clone()
+        tokens = []
+        for t in range(LAYOUT_TICKS):
+            tok = logits.argmax(-1).to(torch.int32)
+            tokens.append(int(tok))
+            with ctx(), record_collectives() as recs:
+                (logits, cache), made = launched(
+                    scan_kernel, lambda: step_api.decode_step(
+                        model, tok, cache, backend="kernel"))
+            scans += made
+            if t == 0:
+                tick = collective_stats(recs)
+        last = logits.float().clone()
+
+        # each timed call ends by reading its logits: on the mesh that
+        # waits for their collective, as the greedy choice does
+        def prefill():
+            with ctx(global_batch=1):
+                api.prefill(model, {"tokens": prompt}, fresh(),
+                            backend="kernel")[0].sum()
+
+        def decode():
+            with ctx():
+                step_api.decode_step(model, tok, cache,
+                                     backend="kernel")[0].sum()
+        pst = collective_stats(pre)
+        return {"tokens": tokens, "first": first, "last": last,
+                "flash_launches": fa, "scan_launches": scans,
+                "prefill_ms": cuda_ms(prefill, warmup=1, repeats=3,
+                                      inner=1),
+                "tick_ms": cuda_ms(decode, warmup=2, repeats=5, inner=3),
+                "prefill_collectives": pst.counts,
+                "prefill_wire_bytes": pst.wire_bytes,
+                "tick_collectives": tick.counts,
+                "tick_wire_bytes": tick.wire_bytes}
+
+    plain = run(False)
+    rules.distribute(model, rules.param_specs(model, mesh), mesh)
+    gc.collect()
+    meshed = run(True)
+    rel = {k: max_abs_err(meshed[k], plain[k])
+           / float(plain[k].abs().max()) for k in ("first", "last")}
+    m = mesh["model"].size()
+    label = f"{arch} on a {tuple(mesh.shape)} mesh"
+    check(meshed["tokens"] == plain["tokens"],
+          f"{label}: greedy tokens {meshed['tokens']} != one card's "
+          f"{plain['tokens']}")
+    check(max(rel.values()) <= tol, f"{label}: logits {rel} of the largest "
+          f"(tol {tol})")
+    check(meshed["flash_launches"] == plain["flash_launches"] and
+          meshed["scan_launches"] == plain["scan_launches"],
+          f"{label}: launches {meshed} against one card's {plain}")
+    check("all-reduce" in meshed["tick_collectives"],
+          f"{label}: a tick dispatched {meshed['tick_collectives']}")
+    out = {"arch": arch, "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "prompt": LONG_PROMPT, "ticks": LAYOUT_TICKS,
+           "tokens": meshed["tokens"], "tokens_equal": True,
+           "max_rel_err_prefill": rel["first"],
+           "max_rel_err_last_tick": rel["last"], "tol": tol,
+           "mesh_path": {k: v for k, v in meshed.items()
+                         if k not in ("first", "last", "tokens")},
+           "one_card": {k: plain[k] for k in (
+               "prefill_ms", "tick_ms", "flash_launches", "scan_launches")}}
+    print(f"{label}: {LAYOUT_TICKS} greedy tokens equal to one card's; "
+          f"logits {rel['first']:.3g} (prefill) and {rel['last']:.3g} (last "
+          f"tick) of the largest (tol {tol}); prefill "
+          f"{meshed['prefill_ms']:.3f} ms (one card "
+          f"{plain['prefill_ms']:.3f}), tick {meshed['tick_ms']:.3f} ms "
+          f"(one card {plain['tick_ms']:.3f}); flash launches "
+          f"{meshed['flash_launches']}, scan launches "
+          f"{meshed['scan_launches']}; a tick's collectives "
+          f"{meshed['tick_collectives']} ({meshed['tick_wire_bytes']:.0f} "
+          f"wire bytes a rank), the prefill's "
+          f"{meshed['prefill_collectives']} "
+          f"({meshed['prefill_wire_bytes']:.0f}); 'model' of {m}",
+          flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def layout_phase(dev, floor_ms) -> dict:
+    """Phase 20: (a) ``flash_sp_slices``; (b) ``layout_compare`` of each
+    of LAYOUT_ARCHS on a one-rank NCCL (1, 1) mesh; the group is
+    destroyed at the end."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    report = {"flash_sp": flash_sp_slices(floor_ms, dev)}
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=f"file://{os.path.join(d, 'store')}", rank=0,
+            world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), dev.type)
+            for arch, tol in LAYOUT_ARCHS:
+                report[arch] = layout_compare(dev, mesh, arch, tol)
+        finally:
+            dist.destroy_process_group()
+    return report
+
+
+def layout_predictions(world: int) -> dict:
+    """The wire bytes a rank of ``--layout-mesh world`` should move, by
+    the dry run on fake tensors under a fake group of ``world`` ranks (no
+    device): each arch's LONG_PROMPT prefill and one decode tick over a
+    cache of LONG_PROMPT + LAYOUT_TICKS positions."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline.collectives import collective_stats
+    out = {}
+    with dryrun.fake_mesh((1, world), ("data", "model")) as mesh:
+        for arch, _ in LAYOUT_ARCHS:
+            cfg = get_config(arch)
+            for kind in ("prefill", "decode"):
+                recs = []
+                dryrun.lower_one(
+                    cfg, ShapeSpec(kind, LONG_PROMPT, 1, kind),
+                    backend="chunked", remat=False, microbatch=0,
+                    cache_len=LONG_PROMPT + LAYOUT_TICKS, mesh=mesh,
+                    records=recs)
+                st = collective_stats(recs)
+                out[f"{arch}/{kind}"] = {"wire_bytes": st.wire_bytes,
+                                         "collectives": st.counts}
+    return out
+
+
+def layout_mesh_rank(rank: int, world: int, workdir: str) -> None:
+    """One rank of ``--layout-mesh``: ``layout_compare`` of each of
+    LAYOUT_ARCHS on cuda:rank over a (1, world) ("data", "model") NCCL
+    mesh."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.selective_scan import kernel as scan_kernel
+    from repro_torch.launch.mesh import make_mesh
+    dev = torch.device(f"cuda:{rank}")
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fa_kernel.build()
+    scan_kernel.build()
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(workdir, 'store')}",
+        rank=rank, world_size=world, device_id=dev,
+        timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh((1, world), ("data", "model"))
+        out = {arch: layout_compare(dev, mesh, arch, tol)
+               for arch, tol in LAYOUT_ARCHS}
+        with open(os.path.join(workdir, f"layout{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def layout_mesh_main(world: int) -> int:
+    """``python3 chip_smoke.py --layout-mesh N``: phase 20(b) over N cards
+    (one NCCL rank a card, a (1, N) mesh): qwen3-4b's sequence-parallel
+    prefill and falcon-mamba-7b's FSDP one, then tensor-parallel ticks,
+    every rank against one card's run and the dry run's wire bytes.
+    Prints each rank's report and the card line.  Needs N cards."""
+    import multiprocessing
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.selective_scan import kernel as scan_kernel
+    check(torch.cuda.device_count() >= world,
+          f"--layout-mesh {world}: {torch.cuda.device_count()} cards")
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(k.build) for k in (fa_kernel, scan_kernel)]:
+            f.result()
+    predicted = layout_predictions(world)
+    print(f"dry-run predictions over {world} ranks "
+          f"({time.perf_counter() - t0:.1f} s with the builds): {predicted}",
+          flush=True)
+    with tempfile.TemporaryDirectory() as d:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=layout_mesh_rank, args=(r, world, d))
+                 for r in range(world)]
+        t1 = time.perf_counter()
+        for pr in procs:
+            pr.start()
+        deadline = time.monotonic() + 600
+        for pr in procs:
+            pr.join(timeout=max(1.0, deadline - time.monotonic()))
+        codes = [pr.exitcode for pr in procs]
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+        check(codes == [0] * world, f"layout ranks exited {codes}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(d, f"layout{r}.json")) as f:
+                ranks.append(json.load(f))
+    for r, rep in enumerate(ranks):
+        for arch, _ in LAYOUT_ARCHS:
+            got = rep[arch]["mesh_path"]
+            for kind, key in (("prefill", "prefill_wire_bytes"),
+                              ("decode", "tick_wire_bytes")):
+                want = predicted[f"{arch}/{kind}"]["wire_bytes"]
+                check(got[key] == want, f"rank {r} {arch} {kind}: "
+                      f"{got[key]} wire bytes, the dry run {want}")
+            check(rep[arch]["tokens"] == ranks[0][arch]["tokens"],
+                  f"rank {r} {arch}: tokens differ from rank 0's")
+    print(json.dumps({"layout_mesh": ranks, "predicted": predicted,
+                      "spawn_s": time.perf_counter() - t1}))
+    print(gpu_line())
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2649,6 +3029,8 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     if sys.argv[1:2] == ["--ep-mesh"]:
         return ep_mesh_main(int(sys.argv[2]))
+    if sys.argv[1:2] == ["--layout-mesh"]:
+        return layout_mesh_main(int(sys.argv[2]))
     import multiprocessing
     import numpy as np
 
@@ -3618,6 +4000,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("19 the mesh-bound paths on CUDA"):
         mesh = mesh_phase(dev)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("20 the serving layouts on CUDA"):
+        layouts = layout_phase(dev, floor_ms)
     print(f"sum of phases: {sum(PHASE_S.values()):.3f} s "
           f"({', '.join(f'{k} {v:.1f}' for k, v in PHASE_S.items())})")
 
@@ -3682,7 +4069,9 @@ def main() -> int:
                                  serve_hybrid["launches"]["flash"],
                              "whisper-base": serve_whisper["launches"][
                                  "flash_prefill"],
-                             "qwen2-vl-72b": serve_vlm["launches"]["flash"]},
+                             "qwen2-vl-72b": serve_vlm["launches"]["flash"],
+                             "qwen3-4b on a (1, 1) mesh": layouts[
+                                 "qwen3-4b"]["mesh_path"]["flash_launches"]},
         "max_abs_err": fa_err[LONG_PROMPT],
         "ms": t_fa["kernel_ms"],
         "plain_ms": t_fa["plain_ms"],
@@ -3697,6 +4086,7 @@ def main() -> int:
         "serve_bucket": {"S": 32, "max_abs_err": fa_err[32],
                          **fa_times[32]},
         "whisper": serve_whisper["flash"],
+        "sequence_parallel_slices": layouts["flash_sp"],
         "design": DESIGN["flash"],
         "occupancy": fa_occ,
         "sass": fa_sass,
@@ -3710,7 +4100,10 @@ def main() -> int:
         "launches": sum(mamba_launches.values()),
         "launches_by_path": {"falcon-mamba-7b": sum(mamba_launches.values()),
                              "jamba-v0.1-52b":
-                                 serve_hybrid["launches"]["scan_fused"]},
+                                 serve_hybrid["launches"]["scan_fused"],
+                             "falcon-mamba-7b on a (1, 1) mesh": layouts[
+                                 "falcon-mamba-7b"]["mesh_path"][
+                                 "scan_launches"]},
         "max_abs_err": scan_err["long_prefill"],
         "ms": scan_times["long_prefill"]["ms"],
         "plain_ms": scan_times["long_prefill"]["plain_ms"],
@@ -3742,7 +4135,8 @@ def main() -> int:
         "serve": serve, "serve_ssm": serve_ssm, "serve_moe": serve_moe,
         "serve_hybrid": serve_hybrid, "serve_whisper": serve_whisper,
         "serve_vlm": serve_vlm, "train": train, "tooling": tooling,
-        "mesh": mesh, "phase_s": PHASE_S}, default=str))
+        "mesh": mesh, "layouts": layouts, "phase_s": PHASE_S},
+        default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

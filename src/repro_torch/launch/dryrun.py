@@ -12,8 +12,8 @@ A cell ``fits`` when its predicted peak is at most the card's 80 GB.
 No device is touched: the fake tensors live on the CPU device and no
 kernel runs, so the CUDA default of the port's entry points does not
 apply here and the dry run runs on any machine.  The reference sets
-``XLA_FLAGS`` for 512 host devices and runs decode without FSDP; one
-device has neither.
+``XLA_FLAGS`` for 512 host devices; one device needs no mesh, and the
+decode's ``fsdp=False`` changes nothing there.
 
 Over a mesh (``lower_cell(multi_pod=False)``: 16 x 16 ``("data",
 "model")``, 256 chips; ``True``: 2 x 16 x 16 with ``"pod"``, 512) the
@@ -21,19 +21,30 @@ count is rank 0's, under a fake process group of ``mesh_chips`` ranks in
 this one process (``fake_mesh``): the parameters are DTensors placed by
 ``sharding.param_specs``, the moments by ``opt_state_specs`` (ZeRO over
 the data axes; ``train/zero.py`` is the update), the batch by
-``batch_specs``, and the step runs on rank-local tensors (weights
-all-gathered at use, MoE expert-parallel over all-to-alls).  The
+``batch_specs``, a prefill's or decode's cache by ``cache_specs_tree``
+over the global batch (each rank holds its shard: the batch over the
+data axes, the last dim over ``"model"``), and the step runs on
+rank-local tensors under ``use_mesh(mesh, global_batch=)``.  The
 functional collectives it dispatches give the wire bytes
 (``roofline/collectives.py``); ``collective_s`` divides them by
-``hw.H100_SCALEOUT_BW``.  Layout: a train cell takes the reference's
-FSDP plus EP layout.  The reference runs decode as Megatron tensor
-parallelism and a prefill whose batch leaves ``"model"`` idle with the
-sequence over ``"model"``; the port has no partitioner to do either, so
-those cells run the FSDP layout too, the ranks the batch leaves idle
-compute a replica, and the cache is the local batch's
-(``cache_specs_tree``'s Dh-over-``"model"`` layout pairs with tensor
-parallel decode: ROADMAP queue 1 item 12c).  Each record names its
-``layout`` and the reference's.
+``hw.H100_SCALEOUT_BW``.  Layouts, the reference's as its dry run and
+models select them (``_layouts``; each record names the port's
+``layout`` and the ``reference_layout``):
+
+* decode: Megatron tensor parallelism (``fsdp=False``, as the
+  reference's ``lower_one`` sets it): the weights stay sharded, the
+  decode tokens lie as the cache's batch (over the data axes), and only
+  activation-sized tensors move (``sharding/tp.py``);
+* a prefill of the dense, moe or vlm family whose batch leaves
+  ``"model"`` idle: the sequence over ``"model"`` (the reference's
+  ``activation_hint`` in its ``lm_prefill``), weights gathered at use;
+* any other prefill (the ssm, hybrid and audio families, whose
+  reference prefills constrain no activation, or a batch over
+  ``"model"`` too): FSDP, with the batch over ``batch_specs``' axes;
+* train: FSDP (+ EP for MoE).  Where the batch leaves ``"model"`` idle
+  (``train_4k`` on 2 x 16 x 16) the reference runs the sequence over it
+  in every family; the port does not yet (ROADMAP item 12d), and the
+  record's ``layout`` says so.
 
 Depth: XLA counts a ``lax.scan`` body once, so the reference unrolls its
 layer scans (``repro.util.unrolled_counting``) and extrapolates from
@@ -69,7 +80,6 @@ import time
 import traceback
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
-import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from ..configs import ARCH_IDS, SHAPES, ShapeSpec, get_config, shape_applies
@@ -86,7 +96,7 @@ from ..sharding import rules
 from ..train import AdamWConfig, make_train_step, zero
 from ..train import init as opt_init
 from ..train import update as opt_update
-from .mesh import PRODUCTION, make_mesh, mesh_chips, use_mesh
+from .mesh import PRODUCTION, axis_sizes, make_mesh, mesh_chips, use_mesh
 
 MESH = "1xH100"
 # the counts the depth identity holds exactly (the peak is a maximum, not
@@ -119,11 +129,18 @@ def fake_mesh(shape, axes) -> Iterator:
         dist.destroy_process_group()
 
 
-def _local(tree: Dict[str, Any], mesh) -> Dict[str, Any]:
-    """A global batch as this rank's rows (``batch_specs``' layout)."""
-    specs = rules.batch_specs(tree, mesh)
-    return {k: v[rules.local_slices(v.shape, specs[k], mesh)].clone()
-            for k, v in tree.items()}
+# the families whose prefill is ``transformer.lm_prefill``, the one that
+# splits the sequence
+SP_FAMILIES = ("dense", "moe", "vlm")
+
+
+def _local(tree: Any, mesh, specs: Any = None) -> Any:
+    """A global tree (dicts of tensors) as this rank's shards, placed by
+    ``specs`` (by default ``batch_specs``' layout)."""
+    specs = rules.batch_specs(tree, mesh) if specs is None else specs
+    if isinstance(tree, dict):
+        return {k: _local(v, mesh, specs[k]) for k, v in tree.items()}
+    return tree[rules.local_slices(tree.shape, specs, mesh)].clone()
 
 
 def _recorded(fn, records: Optional[List[Any]]):
@@ -141,19 +158,31 @@ def _recorded(fn, records: Optional[List[Any]]):
 
 
 def _layouts(cfg, shape: ShapeSpec, mesh) -> Tuple[str, str]:
-    """(the port's layout of a mesh cell, the reference's)."""
-    axes = rules.batch_specs({"x": torch.empty(shape.global_batch, 0)},
-                             mesh)["x"][0]
-    axes = axes if isinstance(axes, tuple) else (axes,)
-    ep = "+ep" if cfg.is_moe_arch else ""
-    port = f"fsdp{ep}, batch over {'+'.join(a for a in axes if a) or 'none'}"
+    """(the port's layout of a mesh cell, the reference's), as the module
+    docstring lists them."""
+    def over(axes) -> str:
+        axes = axes if isinstance(axes, tuple) else (axes,)
+        return "+".join(a for a in axes if a) or "none"
+
+    axes = rules.batch_axes(shape.global_batch, mesh)
+    split = ("model" not in axes
+             and shape.seq_len % axis_sizes(mesh)["model"] == 0)
     if shape.kind == "decode":
-        ref = "tp (fsdp=False), batch over the data axes"
-    elif shape.kind == "prefill" and "model" not in axes:
-        ref = "fsdp, sequence over 'model' (batch leaves it idle)"
-    else:
-        ref = port
-    return port, ref
+        lay = (f"tp (fsdp=False), batch over "
+               f"{over(rules.cache_rows(shape.global_batch, mesh))}")
+        return lay, lay
+    if shape.kind == "prefill":
+        lay = f"fsdp, batch over {over(axes)}"
+        if split and cfg.family in SP_FAMILIES:
+            lay = f"sp, batch over {over(axes)}, sequence over model"
+        return lay, lay
+    ep = "+ep" if cfg.is_moe_arch else ""
+    port = f"fsdp{ep}, batch over {over(axes)}"
+    if split:
+        return (port + "; 'model' idle (sequence-parallel training is "
+                "ROADMAP item 12d)",
+                f"sp{ep}, batch over {over(axes)}, sequence over model")
+    return port, port
 
 
 def depth_units(cfg) -> int:
@@ -181,10 +210,15 @@ def lower_one(cfg, shape: ShapeSpec, *, backend: str, remat: bool,
     ``DeviceMesh`` over a group set up by the caller, e.g. ``fake_mesh``)
     the count is this rank's (see the module docstring); the collectives
     it dispatched are appended to ``records``."""
+    if shape.kind == "decode":
+        # the reference's lower_one: decode runs Megatron TP (outside a
+        # mesh the flag changes nothing)
+        cfg = dataclasses.replace(cfg, fsdp=False)
     api = get_model(cfg)
     b, s = shape.global_batch, shape.seq_len
     max_len = cache_len or s
-    ctx = use_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+    ctx = use_mesh(mesh, global_batch=b) if mesh is not None else \
+        contextlib.nullcontext()
     with FakeTensorMode(), ctx:
         params = param_specs(cfg)
         if mesh is not None:
@@ -208,19 +242,24 @@ def lower_one(cfg, shape: ShapeSpec, *, backend: str, remat: bool,
                               stop_bytes=stop_bytes)
         elif shape.kind == "prefill":
             batch = prefill_input_specs(cfg, b, s)
+            cache = cache_specs(cfg, b, max_len)
             if mesh is not None:
                 batch = _local(batch, mesh)
-            bl = next(iter(batch.values())).shape[0]
-            cache = cache_specs(cfg, bl, max_len)
+                cache = _local(cache, mesh,
+                               rules.cache_specs_tree(cache, mesh))
             counts, _ = count(_recorded(
                 lambda p, bt, c: api.prefill(p, bt, c, backend=backend),
                 records), params, batch, cache, stop_bytes=stop_bytes)
         else:  # decode
             extra = decode_input_specs(cfg, b)
+            cache = cache_specs(cfg, b, max_len)
             if mesh is not None:
-                extra = _local(extra, mesh)
-            bl = next(iter(extra.values())).shape[0]
-            cache = cache_specs(cfg, bl, max_len)
+                rows = rules.cache_rows(b, mesh)
+                extra = _local(extra, mesh, {
+                    k: rules.P(rows, *(None,) * (v.ndim - 1))
+                    for k, v in extra.items()})
+                cache = _local(cache, mesh,
+                               rules.cache_specs_tree(cache, mesh))
             if cfg.family == "vlm":
                 def decode(p, e, c):
                     return api.decode_step(p, None, c, batch_extra=e)

@@ -7,13 +7,19 @@ is the counterpart of the reference's ``"pallas"``: it goes through
 kernel for CUDA tensors and runs the plain version for CPU tensors.  The
 reference's sharding hints (``shard_hint`` on k/v and on the decode query)
 only constrain GSPMD's layout; the port's activations are rank-local on a
-mesh too, so it has none (``sharding/rules.py``).
+mesh, so where that layout splits the work the port splits it by hand: a
+decode step over a cache whose Dh lies over the mesh's ``"model"`` axis
+(``cache_specs_tree``) takes the query's matching Dh slice and all-reduces
+the partial logits, as the reference's ``decode_attention`` does with its
+Dh-sharded query; a sequence-parallel prefill gathers K/V along S before
+it calls ``attention`` (``models/transformer.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels.flash_attention import ops as fa_ops
+from ..sharding import tp
 from ..kernels.flash_attention.ref import (NEG_INF, naive_attention,
                                            softmax_scale)
 
@@ -69,21 +75,31 @@ def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
 
     ``cache_len`` [B] or a scalar = number of valid cache entries (the new
     token's k/v must already be written at position cache_len-1).  Grouped
-    heads: K/V are never expanded to H heads."""
+    heads: K/V are never expanded to H heads.
+
+    A cache holding this rank's Dh slice of every head (Dh over the
+    mesh's ``"model"`` axis; q has whole heads) takes q's matching slice:
+    the partial logits are all-reduced in float32, every rank runs the
+    mask and the softmax, and the rank's slice of the output is
+    all-gathered back into whole heads."""
     b, _, h, dh = q.shape
     kv = k_cache.shape[2]
     g = h // kv
     dev = q.device
-    qg = q.reshape(b, kv, g, dh)
-    logits = torch.einsum("bngd,bsnd->bngs", qg.float(),
-                          k_cache.float()) * softmax_scale(dh)
+    split = k_cache.shape[-1] != dh
+    qg = (tp.chunk(q, -1) if split else q).reshape(b, kv, g, -1)
+    logits = torch.einsum("bngd,bsnd->bngs", qg.float(), k_cache.float())
+    if split:
+        logits = tp.all_reduce(logits)
+    logits = logits * softmax_scale(dh)
     kpos = torch.arange(k_cache.shape[1], device=dev)
     valid = kpos[None, :] < torch.as_tensor(cache_len,
                                             device=dev).reshape(-1, 1)
     logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bngs,bsnd->bngd", w.to(v_cache.dtype), v_cache)
-    return out.reshape(b, 1, h, dh)
+    out = out.reshape(b, 1, h, -1)
+    return tp.all_gather(out, -1) if split else out
 
 
 def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,

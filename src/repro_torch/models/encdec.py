@@ -17,6 +17,15 @@ int32.  Prefill and decode write them in place and return the cache, as
 ``transformer.lm_prefill`` does.  Every attention outside the decode step
 goes through ``attention.attention(..., backend=)``: ``"kernel"`` is the
 flash kernel for CUDA tensors and its plain version on the CPU.
+
+On a mesh the cache may hold the rank's shard (``cache_specs_tree``: Dh
+over ``"model"`` in all four K/V leaves): the prefill, FSDP with no
+sequence split (the reference's constrains no activation), writes that
+layout, and a decode step with ``cfg.fsdp`` False runs tensor parallel,
+both its attentions over the Dh-sharded caches
+(``attention.decode_attention``).  The encoder's 1500 frames do not
+divide a 16-way axis, so it runs whole on every rank, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import torch
 from torch import nn
 
 from ..device import resolve
+from ..sharding import tp
 from ..sharding.rules import fsdp_params
 from . import attention as attn_mod
 from .layers import (MLP, Attention, Embed, ModelConfig, RMSNorm, Unembed,
@@ -103,13 +113,13 @@ def encdec_init(gen: torch.Generator, cfg: ModelConfig) -> EncDecLM:
 
 def _enc_layer(lp: EncLayer, x: torch.Tensor, cfg: ModelConfig, *,
                backend: str) -> torch.Tensor:
-    attn = fsdp_params(lp.attn)
+    attn = fsdp_params(lp.attn, cfg)
     h = rmsnorm(lp.ln1, x)
     q, k, v = qkv_project(attn, h, cfg)
     q, k = _rope(cfg, q, k, 0)
     o = attn_mod.attention(q, k, v, causal=False, backend=backend)
     x = x + out_project(attn, o)
-    return x + mlp(fsdp_params(lp.mlp), rmsnorm(lp.ln2, x))
+    return x + mlp(fsdp_params(lp.mlp, cfg), rmsnorm(lp.ln2, x))
 
 
 def encode(params: EncDecLM, enc_embeds: torch.Tensor, cfg: ModelConfig,
@@ -132,8 +142,8 @@ def _dec_layer(lp: DecLayer, x: torch.Tensor, enc_out: torch.Tensor,
     ``cache`` (this layer's k, v, enc_k and enc_v views) it also writes
     the self-attention's k/v at [0, S) and the cross K/V of ``enc_out``,
     in place."""
-    self_attn = fsdp_params(lp.self_attn)
-    cross_attn = fsdp_params(lp.cross_attn)
+    self_attn = fsdp_params(lp.self_attn, cfg)
+    cross_attn = fsdp_params(lp.cross_attn, cfg)
     h = rmsnorm(lp.ln1, x)
     q, k, v = qkv_project(self_attn, h, cfg)
     q, k = _rope(cfg, q, k, 0)
@@ -144,13 +154,13 @@ def _dec_layer(lp: DecLayer, x: torch.Tensor, enc_out: torch.Tensor,
     if cache is not None:
         kc, vc, ekc, evc = cache
         s = x.shape[1]
-        kc[:, :s] = k.to(kc.dtype)
-        vc[:, :s] = v.to(vc.dtype)
-        ekc.copy_(ek)
-        evc.copy_(ev)
+        kc[:, :s] = tp.to_cache(k, kc[:, :s]).to(kc.dtype)
+        vc[:, :s] = tp.to_cache(v, vc[:, :s]).to(vc.dtype)
+        ekc.copy_(tp.to_cache(ek, ekc))
+        evc.copy_(tp.to_cache(ev, evc))
     o = attn_mod.attention(qx, ek, ev, causal=False, backend=backend)
     x = x + out_project(cross_attn, o)
-    return x + mlp(fsdp_params(lp.mlp), rmsnorm(lp.ln2, x))
+    return x + mlp(fsdp_params(lp.mlp, cfg), rmsnorm(lp.ln2, x))
 
 
 def encdec_apply(params: EncDecLM, batch: Dict[str, torch.Tensor],
@@ -164,7 +174,7 @@ def encdec_apply(params: EncDecLM, batch: Dict[str, torch.Tensor],
     (``layers.remat_call``)."""
     enc_out = encode(params, batch["enc_embeds"], cfg, backend=backend,
                      remat=remat)
-    x = embed(params.embed, batch["tokens"])
+    x = embed(params.embed, batch["tokens"], cfg)
     for lp in params.dec_layers:
         x = remat_call(functools.partial(_dec_layer, lp, cfg=cfg,
                                          backend=backend),
@@ -212,7 +222,7 @@ def encdec_prefill(params: EncDecLM, batch: Dict[str, torch.Tensor],
         raise ValueError(f"{se} encoder frames, the cache holds "
                          f"{cache['enc_k'].shape[2]}")
     enc_out = encode(params, batch["enc_embeds"], cfg, backend=backend)
-    x = embed(params.embed, batch["tokens"])
+    x = embed(params.embed, batch["tokens"], cfg)
     for i, lp in enumerate(params.dec_layers):
         x = _dec_layer(lp, x, enc_out, cfg, backend=backend,
                        cache=tuple(cache[n][i] for n in
@@ -232,15 +242,15 @@ def encdec_decode_step(params: EncDecLM, tokens: torch.Tensor, cache: Cache,
     both by the one-token path (``decode_attention``), whatever
     ``backend`` names.  Returns logits [B, 1, V] float32 and the cache
     (written in place) with ``len + 1``."""
-    x = embed(params.embed, tokens)
-    pos = cache["len"]                                           # [B]
+    x = embed(params.embed, tokens, cfg)
     b = tokens.shape[0]
+    pos = tp.local_rows(cache["len"], b)                         # [B]
     enc_len = torch.full((b,), cache["enc_k"].shape[2], dtype=torch.int32,
                          device=x.device)
     for i, lp in enumerate(params.dec_layers):
         kc, vc = cache["k"][i], cache["v"][i]
-        self_attn = fsdp_params(lp.self_attn)
-        cross_attn = fsdp_params(lp.cross_attn)
+        self_attn = fsdp_params(lp.self_attn, cfg)
+        cross_attn = fsdp_params(lp.cross_attn, cfg)
         h = rmsnorm(lp.ln1, x)
         q, k, v = qkv_project(self_attn, h, cfg)
         q, k = _rope(cfg, q, k, pos)
@@ -252,7 +262,7 @@ def encdec_decode_step(params: EncDecLM, tokens: torch.Tensor, cache: Cache,
         o = attn_mod.decode_attention(qx, cache["enc_k"][i],
                                       cache["enc_v"][i], enc_len)
         x = x + out_project(cross_attn, o)
-        x = x + mlp(fsdp_params(lp.mlp), rmsnorm(lp.ln2, x))
+        x = x + mlp(fsdp_params(lp.mlp, cfg), rmsnorm(lp.ln2, x))
     x = rmsnorm(params.final_norm, x)
     logits = unembed(params.unembed, params.embed, x, cfg)
     return logits, {**cache, "len": cache["len"] + 1}

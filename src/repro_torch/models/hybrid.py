@@ -22,6 +22,12 @@ and every Mamba block's scan through the fused scan kernel (the CUDA
 kernels for CUDA tensors, their plain versions on the CPU); ``"chunked"``
 runs the chunked attention and the chunked scan wherever the tensors are.
 Decode attends over the cache by its one-token path either way.
+
+On a mesh the cache may hold the rank's shard (``cache_specs_tree``): the
+prefill, which runs FSDP with no sequence split (the reference's hybrid
+prefill constrains no activation), writes every leaf in that layout, and
+a decode step with ``cfg.fsdp`` False runs tensor parallel through the
+attention, Mamba and MoE layers (``sharding/tp.py``).
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import torch
 from torch import nn
 
 from ..device import resolve
+from ..sharding import tp
 from .layers import (MLP, Attention, Embed, ModelConfig, RMSNorm, Unembed,
                      embed, fill_normal, remat_call, rmsnorm, unembed)
 from .moe import MoE
@@ -153,7 +160,7 @@ def hybrid_apply(params: HybridLM, batch: Dict[str, torch.Tensor],
     pass (``layers.remat_call``), as the reference does: a whole period's
     chunked scans would stay live otherwise."""
     _check_backend(backend)
-    x = embed(params.embed, batch["tokens"])
+    x = embed(params.embed, batch["tokens"], cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params.layers:
         x, a = remat_call(functools.partial(_layer, layer, cfg=cfg,
@@ -197,9 +204,10 @@ def _layers(params: HybridLM, cfg: ModelConfig):
 
 
 def _store(slot: Cache, p: int, state: Dict[str, torch.Tensor]) -> None:
-    """A Mamba block's new (h, conv) into its slot's cache at period p."""
-    slot["h"][p].copy_(state["h"])
-    slot["conv"][p].copy_(state["conv"])
+    """A Mamba block's new (h, conv) into its slot's cache at period p, in
+    the cache's layout."""
+    for k in ("h", "conv"):
+        slot[k][p].copy_(tp.to_cache(state[k], slot[k][p]))
 
 
 @torch.no_grad()
@@ -211,7 +219,7 @@ def hybrid_prefill(params: HybridLM, batch: Dict[str, torch.Tensor],
     last position's logits [B,1,V] float32 and the cache with
     ``len = S``."""
     _check_backend(backend)
-    x = embed(params.embed, batch["tokens"])
+    x = embed(params.embed, batch["tokens"], cfg)
     s = x.shape[1]
     h0 = _zero_state(cfg, x)
     for layer, p, i in _layers(params, cfg):
@@ -237,8 +245,8 @@ def hybrid_decode_step(params: HybridLM, tokens: torch.Tensor, cache: Cache,
     over the cache by the one-token path.  Returns logits [B,1,V] float32
     and the cache (written in place) with ``len + 1``."""
     _check_backend(backend)
-    x = embed(params.embed, tokens)
-    pos = cache["len"]
+    x = embed(params.embed, tokens, cfg)
+    pos = tp.local_rows(cache["len"], x.shape[0])
     for layer, p, i in _layers(params, cfg):
         if hasattr(layer, "attn"):
             x = _cached_layer(layer, cache["k"][p], cache["v"][p], x, cfg,

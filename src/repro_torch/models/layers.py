@@ -17,18 +17,16 @@ import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..sharding.rules import replicate_hint
+from ..sharding import tp
+from ..sharding.rules import fsdp_params, replicate_hint
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The reference's config, its fields and defaults, but for ``fsdp``
-    (its choice of mesh sharding: on a mesh the port always gathers the
-    weights at use, ``sharding/rules.py::fsdp_params``)."""
+    """The reference's config: its fields and defaults."""
 
     name: str = "model"
     family: str = "dense"  # dense | moe | ssm | hybrid | vlm | audio
@@ -61,6 +59,9 @@ class ModelConfig:
     # frontend stubs
     frontend: str = "token"        # token | embed (precomputed frame/patch)
     dtype: torch.dtype = torch.bfloat16
+    # mesh layout: True = FSDP (weights gathered at use), False = Megatron
+    # tensor parallelism (weights left sharded; ``sharding/tp.py``)
+    fsdp: bool = True
 
     @property
     def d_inner(self) -> int:      # mamba inner width
@@ -216,13 +217,16 @@ def qkv_project(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                 kv_x: Optional[torch.Tensor] = None):
     """Returns q [B,S,H,Dh] from x and k/v [B,Skv,KV,Dh] from ``kv_x``
     (x itself by default; the encoder's output for cross-attention),
-    pre-RoPE, post-qk-norm."""
+    pre-RoPE, post-qk-norm.  Column-parallel weights (tensor parallelism)
+    give each rank its run of columns, which are all-gathered into whole
+    heads before the norm: a rank's run may end inside a head."""
     b, s, _ = x.shape
     kv_x = x if kv_x is None else kv_x
     skv = kv_x.shape[1]
-    q = (x @ p.wq).reshape(b, s, cfg.n_heads, cfg.d_head)
-    k = (kv_x @ p.wk).reshape(b, skv, cfg.n_kv, cfg.d_head)
-    v = (kv_x @ p.wv).reshape(b, skv, cfg.n_kv, cfg.d_head)
+    q, k, v = tp.columns((x, p.wq), (kv_x, p.wk), (kv_x, p.wv))
+    q = q.reshape(b, s, cfg.n_heads, cfg.d_head)
+    k = k.reshape(b, skv, cfg.n_kv, cfg.d_head)
+    v = v.reshape(b, skv, cfg.n_kv, cfg.d_head)
     if cfg.qk_norm:
         q = rmsnorm(p.q_norm, q)
         k = rmsnorm(p.k_norm, k)
@@ -230,8 +234,10 @@ def qkv_project(p: Attention, x: torch.Tensor, cfg: ModelConfig,
 
 
 def out_project(p: Attention, attn: torch.Tensor) -> torch.Tensor:
+    """attn [B,S,H,Dh] whole heads @ wo; a row-parallel wo takes the
+    rank's run of the H*Dh inputs and sums over "model"."""
     b, s, h, dh = attn.shape
-    return attn.reshape(b, s, h * dh) @ p.wo
+    return tp.row(tp.in_chunk(attn.reshape(b, s, h * dh), p.wo), p.wo)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -243,12 +249,17 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
-    h = silu(x @ p.wg) * (x @ p.wi)
-    return h @ p.wo
+    """SwiGLU.  Under tensor parallelism wi/wg give the rank its run of F
+    and wo takes the same run: no gather, one all-reduce."""
+    h = silu(tp.column(x, p.wg)) * tp.column(x, p.wi)
+    return tp.row(h, p.wo)
 
 
-def embed(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, replicate_hint(p.tok))
+def embed(p: Embed, tokens: torch.Tensor,
+          cfg: Optional[ModelConfig] = None) -> torch.Tensor:
+    """On a mesh the table is gathered at use, or, with ``cfg.fsdp``
+    False, looked up vocab-parallel (``tp.embedding``)."""
+    return tp.embedding(tokens, fsdp_params(p, cfg).tok)
 
 
 def unembed(p: Unembed, emb: Embed, x: torch.Tensor,
@@ -261,7 +272,10 @@ def unembed(p: Unembed, emb: Embed, x: torch.Tensor,
     unless the caller enables TF32.  At qwen3-4b's width that is a 1.56 GB
     float32 transient of the [2560, 151936] weight per call.  On a mesh
     the weight is all-gathered at use (``replicate_hint``), as the
-    embedding is."""
-    w = replicate_hint(emb.tok).T if cfg.tie_embeddings else \
-        replicate_hint(p.w)
-    return x.float() @ w.float()
+    embedding is; with ``cfg.fsdp`` False each rank multiplies its vocab
+    columns and the logits are all-gathered (``tp.logits``)."""
+    if cfg.tie_embeddings:
+        tok = fsdp_params(emb, cfg).tok
+        return tp.logits(x, tp.local(tok).T, tp.split_dim(tok) is not None)
+    w = fsdp_params(p, cfg).w
+    return tp.logits(x, tp.local(w), tp.split_dim(w) is not None)

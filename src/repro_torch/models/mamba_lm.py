@@ -5,8 +5,11 @@ Mamba1 layers have no separate MLP: the block is the layer.  The
 reference scans over stacked [L, ...] layer params; the port keeps one
 ``SSMLayer`` per layer in an ``nn.ModuleList`` and loops over them (the
 reference's ``fsdp_params`` runs in ``ssm.mamba_mix``, its
-``activation_hint`` has no counterpart on the port's rank-local activations,
-and its ``jax.checkpoint`` is ``remat``).
+``activation_hint`` has no counterpart on the port's rank-local activations
+(its prefill constrains none), and its ``jax.checkpoint`` is ``remat``).
+On a mesh the cache may hold the rank's shard (``cache_specs_tree``):
+prefill writes the state in that layout (``tp.to_cache``), and a decode
+step with ``cfg.fsdp`` False runs tensor parallel (``ssm.py``).
 
 The decode cache keeps the reference's layout, ``{"h": [L,B,Di,N] f32,
 "conv": [L,B,K-1,Di] f32, "len": [B] int32}``; prefill and decode write
@@ -25,6 +28,7 @@ import torch
 from torch import nn
 
 from ..device import resolve
+from ..sharding import tp
 from .layers import (Embed, ModelConfig, RMSNorm, Unembed, embed,
                      fill_normal, remat_call, rmsnorm, unembed)
 from .ssm import (Mamba, fill_mamba, mamba_apply, mamba_cache_init,
@@ -87,7 +91,7 @@ def ssm_lm_apply(params: SSMLM, batch: Dict[str, torch.Tensor],
     and its training path; the CUDA scan has no backward and raises under
     autograd); ``remat`` rematerialises each layer in the backward pass
     (``layers.remat_call``)."""
-    x = embed(params.embed, batch["tokens"])
+    x = embed(params.embed, batch["tokens"], cfg)
     for layer in params.layers:
         x = remat_call(functools.partial(_layer, layer, cfg=cfg,
                                          backend=backend), x, remat=remat)
@@ -111,6 +115,12 @@ def ssm_lm_init_cache(cfg: ModelConfig, batch_size: int, max_len: int = 0,
     return cache
 
 
+def _store(cache: Cache, i: int, state: Dict[str, torch.Tensor]) -> None:
+    """A block's new (h, conv) into layer i of the cache, in its layout."""
+    for k in ("h", "conv"):
+        cache[k][i].copy_(tp.to_cache(state[k], cache[k][i]))
+
+
 @torch.no_grad()
 def ssm_lm_prefill(params: SSMLM, batch: Dict[str, torch.Tensor],
                    cfg: ModelConfig, cache: Cache, *,
@@ -118,7 +128,7 @@ def ssm_lm_prefill(params: SSMLM, batch: Dict[str, torch.Tensor],
     """The prompt from a zero state; writes each layer's final (h, conv)
     into the cache in place; returns the last position's logits [B,1,V]
     float32 and the cache with ``len = S``."""
-    x = embed(params.embed, batch["tokens"])
+    x = embed(params.embed, batch["tokens"], cfg)
     s = x.shape[1]
     h0 = torch.zeros((x.shape[0], cfg.d_inner, cfg.ssm_state),
                      dtype=torch.float32, device=x.device)
@@ -126,8 +136,7 @@ def ssm_lm_prefill(params: SSMLM, batch: Dict[str, torch.Tensor],
         y, state = mamba_mix(layer.mamba, rmsnorm(layer.ln, x), cfg, h0,
                              backend=backend)
         x = x + y
-        cache["h"][i].copy_(state["h"])
-        cache["conv"][i].copy_(state["conv"])
+        _store(cache, i, state)
     x = rmsnorm(params.final_norm, x[:, -1:])
     logits = unembed(params.unembed, params.embed, x, cfg)
     return logits, {"h": cache["h"], "conv": cache["conv"],
@@ -140,15 +149,14 @@ def ssm_lm_decode_step(params: SSMLM, tokens: torch.Tensor, cache: Cache,
                        ) -> Tuple[torch.Tensor, Cache]:
     """tokens [B,1] -> logits [B,1,V] float32 and the cache (written in
     place) with ``len + 1``."""
-    x = embed(params.embed, tokens)
+    x = embed(params.embed, tokens, cfg)
     for i, layer in enumerate(params.layers):
         y, state = mamba_decode_step(
             layer.mamba, rmsnorm(layer.ln, x),
             {"h": cache["h"][i], "conv": cache["conv"][i]}, cfg,
             backend=backend)
         x = x + y
-        cache["h"][i].copy_(state["h"])
-        cache["conv"][i].copy_(state["conv"])
+        _store(cache, i, state)
     x = rmsnorm(params.final_norm, x)
     logits = unembed(params.unembed, params.embed, x, cfg)
     return logits, {"h": cache["h"], "conv": cache["conv"],

@@ -9,7 +9,12 @@ reference, ``moe_apply`` takes the expert-parallel path (``moe_ep.py``:
 explicit all-to-alls over the mesh's ``"model"`` axis) whenever an
 ambient mesh and the batch allow it, and the dense path below otherwise;
 on a mesh the dense path all-gathers the expert banks first
-(``fsdp_params``).
+(``fsdp_params``), except under tensor parallelism (``cfg.fsdp`` False,
+the reference's "TP decode"): there every ``"model"`` rank holds the same
+tokens, routes all of them as one device does (the same capacity and the
+same drops), fills and multiplies only its own E/m experts' buffers, and
+one float32 all-reduce sums the ranks' contributions.  The banks are
+never gathered.
 
 Exactness of the routing: the router runs in float32 (on the card with
 TF32 off, PyTorch's default), the top k comes from a stable descending
@@ -35,6 +40,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from ..sharding import tp
 from ..sharding.rules import fsdp_params
 from .layers import ModelConfig, _param, silu
 
@@ -125,7 +131,7 @@ def route(p: MoE, xt: torch.Tensor, cfg: ModelConfig, cap: int):
     """The router over xt [T, D]: (gate [T, k] float32, expert [T, k],
     keep [T*k] bool, slot [T*k], aux loss float32 scalar); each pair's
     slot is its rank within its expert in (token, choice) order."""
-    probs, gate, expert = top_k(p.router, xt, cfg)
+    probs, gate, expert = top_k(tp.local(p.router), xt, cfg)
     slot, keep = rank_by(expert.reshape(-1), cfg.n_experts, cap)
     return gate, expert, keep, slot, aux_loss(probs, expert, cfg.n_experts)
 
@@ -136,31 +142,41 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig
     from .moe_ep import ep_applicable, moe_apply_ep
     if ep_applicable(cfg, x):
         return moe_apply_ep(p, x, cfg)
-    p = fsdp_params(p)
+    p = fsdp_params(p, cfg)
+    wi, wg, wo = (tp.local(w) for w in (p.wi, p.wg, p.wo))
     b, s, d = x.shape
     t = b * s
-    e, k = cfg.n_experts, cfg.top_k
+    k = cfg.top_k
     cap = _capacity(t, cfg)
     xt = x.reshape(t, d)
-    gate, _, keep, slot, aux = route(p, xt, cfg, cap)
+    gate, expert, keep, slot, aux = route(p, xt, cfg, cap)
+
+    # this rank's experts [e0, e0 + e_loc): all of them but under TP
+    e_loc = wi.shape[0]
+    e0 = 0 if tp.split_dim(p.wi) is None else tp.model_axis()[1] * e_loc
+    flat_e = expert.reshape(-1)
+    mine = keep & (flat_e >= e0) & (flat_e < e0 + e_loc)
+    lslot = (slot - e0 * cap).clamp(0, e_loc * cap - 1)
 
     # dispatch: each kept pair into its slot; a dropped pair adds zeros
     # into the last slot, as the reference's scatter does
     tok_idx = torch.arange(t, device=x.device)[:, None].expand(t, k) \
         .reshape(-1)
-    rows = torch.where(keep[:, None], xt[tok_idx], 0)
-    buf = torch.zeros((e * cap, d), dtype=x.dtype, device=x.device)
-    buf.index_add_(0, torch.where(keep, slot, e * cap - 1), rows)
-    buf = buf.reshape(e, cap, d)
+    rows = torch.where(mine[:, None], xt[tok_idx], 0)
+    buf = torch.zeros((e_loc * cap, d), dtype=x.dtype, device=x.device)
+    buf.index_add_(0, torch.where(mine, lslot, e_loc * cap - 1), rows)
+    buf = buf.reshape(e_loc, cap, d)
 
-    hg = _expert_product(buf, p.wg)
-    hi = _expert_product(buf, p.wi)
+    hg = _expert_product(buf, wg)
+    hi = _expert_product(buf, wi)
     h = (silu(hg) * hi).to(x.dtype)
-    out_buf = _expert_product(h, p.wo)                           # [E, C, D]
+    out_buf = _expert_product(h, wo)                             # [E, C, D]
 
     # combine: each kept pair's expert output, weighted by its gate
-    w = torch.where(keep, gate.reshape(-1), 0.0)[:, None]
-    out = combine(out_buf.reshape(e * cap, d)[slot] * w, k)
+    w = torch.where(mine, gate.reshape(-1), 0.0)[:, None]
+    out = combine(out_buf.reshape(e_loc * cap, d)[lslot] * w, k)
+    if e_loc != cfg.n_experts:
+        out = tp.all_reduce(out)
     return out.reshape(b, s, d).to(x.dtype), aux
 
 

@@ -31,11 +31,14 @@ tokens are dropped.  The port sends each kept pair's local expert id + 1
 (0 marks padding), and padding takes no capacity.  Where the reference
 drops none the two agree (tests/test_torch_moe_ep.py).
 
-Requirements (``ep_applicable``): an ambient mesh with a ``"model"`` axis
-of ``m > 1``, ``E % m == 0``, and a global batch that divides the whole
-mesh.  With rank-local ``x`` that batch is ``x.shape[0] * mesh_chips``,
-which every rank's share divides by construction, so what is left to
-check is that the rank holds a token at all.
+Requirements (``ep_applicable``): FSDP weights (``cfg.fsdp``: under
+tensor parallelism every ``"model"`` rank holds the same tokens, which EP
+would process m times; ``moe_apply``'s dense path splits the experts
+instead), an ambient mesh with a ``"model"`` axis of ``m > 1``,
+``E % m == 0``, and a global batch that divides the whole mesh.  With
+rank-local ``x`` that batch is ``x.shape[0] * mesh_chips``, which every
+rank's share divides by construction, so what is left to check is that
+the rank holds a token at all.
 ``moe_apply`` falls back to the dense path otherwise.  Called directly,
 ``moe_apply_ep`` also runs on a ``"model"`` axis of one.
 """
@@ -52,7 +55,7 @@ from .moe import MoE, _expert_product, aux_loss, combine, rank_by, top_k
 
 def ep_applicable(cfg: ModelConfig, x: torch.Tensor) -> bool:
     mesh = current_mesh()
-    if mesh is None or "model" not in axis_sizes(mesh):
+    if mesh is None or "model" not in axis_sizes(mesh) or not cfg.fsdp:
         return False
     m = axis_sizes(mesh)["model"]
     return cfg.n_experts % m == 0 and m > 1 and x.shape[0] > 0

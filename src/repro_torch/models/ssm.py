@@ -17,6 +17,15 @@ threshold changes the function), and ``silu`` is ``layers.silu``.
 
 Decode state per layer: ``h`` [B, Di, N] and ``conv`` [B, K-1, Di], both
 float32: the last K-1 inputs of the convolution.
+
+Tensor parallel (``cfg.fsdp`` False on a mesh, ``sharding/tp.py``): the
+rank runs its run of Di.  ``in_x``/``in_z``/``dt_proj`` are
+column-parallel and the convolution, the scan and the skip run on the
+rank's channels; ``x_proj`` and ``out`` are row-parallel, each followed
+by a float32 all-reduce.  The state keeps ``cache_specs_tree``'s stored
+layout (``h`` with N over ``"model"``, ``conv`` with Di): the scan needs
+the rank's channels with every N, so ``h`` is resharded by one
+all-to-all in and one out a step (``tp.state_in``/``tp.state_out``).
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ from torch import nn
 from ..device import resolve
 from ..kernels.selective_scan import ops as scan_ops
 from ..kernels.selective_scan.ref import fused_scan_ref
+from ..sharding import tp
 from ..sharding.rules import fsdp_params
 from .layers import ModelConfig, _param, fill_normal, silu
 
@@ -120,10 +130,10 @@ def _ssm_params(p: Mamba, x: torch.Tensor, cfg: ModelConfig):
     """x [B,S,Di] (post-conv, post-silu) -> dt [B,S,Di], B and C [B,S,N],
     all float32."""
     n, r = cfg.ssm_state, dt_rank(cfg)
-    proj = x @ p.x_proj                                         # [B,S,R+2N]
+    proj = tp.row(x, p.x_proj)                                  # [B,S,R+2N]
     dt_in, bc = proj[..., :r], proj[..., r:]
     bmat, cmat = bc[..., :n], bc[..., n:]
-    dt = softplus(dt_in.float() @ p.dt_proj + p.dt_bias)
+    dt = softplus(dt_in.float() @ tp.local(p.dt_proj) + tp.local(p.dt_bias))
     return dt, bmat.float(), cmat.float()
 
 
@@ -143,19 +153,26 @@ def mamba_mix(p: Mamba, x: torch.Tensor, cfg: ModelConfig, h0: torch.Tensor,
     """The block over x [B,S,D] from state (h0 [B,Di,N], conv_state
     [B,K-1,Di] or zeros when None) -> (y [B,S,D], the state after the last
     position: {"h", "conv"}, float32, new tensors).  On a mesh the
-    block's weights are all-gathered at use (``fsdp_params``)."""
-    p = fsdp_params(p)
-    xi = x @ p.in_x                                              # [B,S,Di]
-    z = x @ p.in_z
-    xc = silu(_causal_conv(xi, p.conv_w, p.conv_b, conv_state))
+    block's weights are all-gathered at use (``fsdp_params``), or, with
+    ``cfg.fsdp`` False, run tensor parallel on the rank's channels: the
+    state then comes and goes in the cache's layout (the module
+    docstring)."""
+    p = fsdp_params(p, cfg)
+    xi = tp.column(x, p.in_x)                                    # [B,S,Di]
+    z = tp.column(x, p.in_z)
+    di = xi.shape[-1]
+    xc = silu(_causal_conv(xi, tp.local(p.conv_w), tp.local(p.conv_b),
+                           conv_state))
     dt, bmat, cmat = _ssm_params(p, xc, cfg)
-    y, h_last = _scan(dt, bmat, cmat, xc, -torch.exp(p.a_log), h0, backend)
-    y = y + xc.float() * p.d_skip
+    h = tp.state_in(h0, di, cfg.ssm_state)
+    y, h_last = _scan(dt, bmat, cmat, xc, -torch.exp(tp.local(p.a_log)), h,
+                      backend)
+    y = y + xc.float() * tp.local(p.d_skip)
     y = (y * silu(z.float())).to(x.dtype)
     tail = xi if conv_state is None else torch.cat(
         [conv_state.to(xi.dtype), xi], dim=1)
     conv = tail[:, tail.shape[1] - (cfg.ssm_conv - 1):].float()
-    return y @ p.out, {"h": h_last, "conv": conv}
+    return tp.row(y, p.out), {"h": tp.state_out(h_last, h0), "conv": conv}
 
 
 def mamba_apply(p: Mamba, x: torch.Tensor, cfg: ModelConfig, *,

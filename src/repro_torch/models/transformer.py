@@ -20,6 +20,15 @@ positions are the plain RoPE's.  A layer holds ``moe`` (``models/moe.py``)
 in place of ``mlp`` where the reference's ``layer_init`` puts one: every
 layer of a ``moe``-family config, and every layer of any config with
 experts and ``moe_every == 1``.
+
+On a mesh (``sharding.mesh.use_mesh``) the layers run in the reference's
+serving layouts (``sharding/tp.py``): a decode step with ``cfg.fsdp``
+False is Megatron tensor parallel over a cache laid out by
+``cache_specs_tree`` (Dh over ``"model"``); a prefill whose global batch
+leaves ``"model"`` idle (``tp.sequence_parallel``, the rule of the
+reference's ``activation_hint`` in its ``lm_prefill``) runs each rank's
+S/m positions with the weights gathered at use and K/V gathered along S
+once a layer.  Every other step gathers the weights at use (FSDP).
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ from torch import nn
 
 from ..device import resolve
 from . import attention as attn_mod
+from ..sharding import tp
 from ..sharding.rules import fsdp_params
 from .layers import (MLP, Attention, Embed, ModelConfig, RMSNorm, Unembed,
                      apply_mrope, apply_rope, embed, fill_normal, mlp,
@@ -123,7 +133,7 @@ def ffn(layer: nn.Module, h: torch.Tensor, cfg: ModelConfig
     MLP (no device tensor a layer on the serving path, which drops it)."""
     if hasattr(layer, "moe"):
         return moe_apply(layer.moe, h, cfg)
-    return mlp(fsdp_params(layer.mlp), h), 0.0
+    return mlp(fsdp_params(layer.mlp, cfg), h), 0.0
 
 
 def _positions(s: int, offset, device) -> torch.Tensor:
@@ -148,7 +158,7 @@ def _inputs(params: nn.Module, batch: Dict[str, torch.Tensor],
             cfg: ModelConfig) -> torch.Tensor:
     """The embedded ``tokens``, or ``embeds`` in the config's dtype."""
     if "tokens" in batch:
-        return embed(params.embed, batch["tokens"])
+        return embed(params.embed, batch["tokens"], cfg)
     return batch["embeds"].to(cfg.dtype)
 
 
@@ -156,7 +166,7 @@ def layer_apply(p: Layer, x: torch.Tensor, cfg: ModelConfig, *,
                 backend: str = "chunked", pos3=None
                 ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
     """Returns (x_out, aux loss)."""
-    attn = fsdp_params(p.attn)
+    attn = fsdp_params(p.attn, cfg)
     h = rmsnorm(p.ln1, x)
     q, k, v = qkv_project(attn, h, cfg)
     q, k = _rope(cfg, q, k, 0, pos3)
@@ -214,7 +224,10 @@ def _scatter_kv(cache: torch.Tensor, new: torch.Tensor,
     position ``pos[b]``, in place.  A position at or past Smax writes
     nothing, as the reference's scatter drops an out-of-range update (an
     idle serving slot keeps decoding and its length keeps growing).  Done
-    with a clamped index and a select, so nothing waits for the device."""
+    with a clamped index and a select, so nothing waits for the device.
+    A cache in another layout takes ``new`` in its own
+    (``tp.to_cache``: a Dh-sharded cache its Dh slice)."""
+    new = tp.to_cache(new, cache[:, :1])
     b, smax = cache.shape[0], cache.shape[1]
     rows = torch.arange(b, device=cache.device)
     pos = pos.to(torch.int64)
@@ -227,31 +240,39 @@ def _scatter_kv(cache: torch.Tensor, new: torch.Tensor,
 def _cached_layer(p: Layer, kc: torch.Tensor, vc: torch.Tensor,
                   x: torch.Tensor, cfg: ModelConfig, offset,
                   cache_len: Optional[torch.Tensor], *,
-                  backend: str, pos3=None) -> torch.Tensor:
+                  backend: str, pos3=None, sp: bool = False) -> torch.Tensor:
     """One layer of prefill (``offset`` an int: writes the cache at
     [offset, offset + S)) or decode (``offset`` a [B] tensor: writes each
     row at its own position, then attends over the cache).  ``kc``/``vc``
-    are this layer's [B, Smax, KV, Dh] views of the cache, updated in
-    place.  ``pos3`` goes to ``_rope``.  The feed-forward's aux loss is
+    are this layer's [B, Smax, KV, Dh] views of the cache (or of its
+    rank's shard, ``tp.to_cache``), updated in place.  ``pos3`` goes to
+    ``_rope``.  With ``sp`` x holds the rank's positions [offset,
+    offset + S/m) of a prompt written from 0: K/V are all-gathered along S
+    before the write and the attention.  The feed-forward's aux loss is
     dropped, as the reference's is."""
-    attn = fsdp_params(p.attn)
+    attn = fsdp_params(p.attn, cfg)
     h = rmsnorm(p.ln1, x)
     q, k, v = qkv_project(attn, h, cfg)
     q, k = _rope(cfg, q, k, offset, pos3)
-    s = x.shape[1]
+    q_offset = offset
+    if sp:                     # the reference's attention.py:59-60
+        k, v, offset = tp.gather_seq(k), tp.gather_seq(v), 0
+    s = k.shape[1]
     if isinstance(offset, int):
         if offset < 0 or offset + s > kc.shape[1]:
             raise ValueError(f"prefill of {s} tokens at {offset} does not "
                              f"fit a cache of {kc.shape[1]}")
-        kc[:, offset:offset + s] = k.to(kc.dtype)
-        vc[:, offset:offset + s] = v.to(vc.dtype)
+        kw = kc[:, offset:offset + s]
+        vw = vc[:, offset:offset + s]
+        kw[...] = tp.to_cache(k, kw).to(kc.dtype)
+        vw[...] = tp.to_cache(v, vw).to(vc.dtype)
     else:
         _scatter_kv(kc, k, offset)
         _scatter_kv(vc, v, offset)
-    if s == 1:
+    if x.shape[1] == 1 and not sp:
         o = attn_mod.decode_attention(q, kc, vc, cache_len)
     else:
-        o = attn_mod.attention(q, k, v, causal=True, q_offset=offset,
+        o = attn_mod.attention(q, k, v, causal=True, q_offset=q_offset,
                                backend=backend)
     x = x + out_project(attn, o)
     return x + ffn(p, rmsnorm(p.ln2, x), cfg)[0]
@@ -264,14 +285,23 @@ def lm_prefill(params: DenseLM, batch: Dict[str, torch.Tensor],
     """Full-prompt forward; fills cache[:, :, :S] in place; returns the
     last position's logits [B, 1, V] float32 and the cache with
     ``len = S``.  The batch holds ``tokens`` or ``embeds`` (and
-    ``pos3``), as ``lm_apply``'s does."""
+    ``pos3``), as ``lm_apply``'s does.  Sequence parallel on a mesh
+    (``tp.sequence_parallel``): each rank runs its S/m positions of the
+    batch leaves, and the last position comes from the last rank."""
+    s = next(iter(batch.values())).shape[1]
+    sp = tp.sequence_parallel(cfg, s)
+    start = tp.seq_start(s) if sp else 0
+    if sp:
+        batch = {k: tp.chunk(v, 1) for k, v in batch.items()}
     x = _inputs(params, batch, cfg)
     pos3 = batch.get("pos3")
-    s = x.shape[1]
     for i, layer in enumerate(params.layers):
-        x = _cached_layer(layer, cache["k"][i], cache["v"][i], x, cfg, 0,
-                          None, backend=backend, pos3=pos3)
-    x = rmsnorm(params.final_norm, x[:, -1:])
+        x = _cached_layer(layer, cache["k"][i], cache["v"][i], x, cfg,
+                          start, None, backend=backend, pos3=pos3, sp=sp)
+    x = x[:, -1:]
+    if sp:
+        x = tp.from_last_rank(x)
+    x = rmsnorm(params.final_norm, x)
     logits = unembed(params.unembed, params.embed, x, cfg)
     return logits, {"k": cache["k"], "v": cache["v"],
                     "len": torch.full_like(cache["len"], s)}
@@ -294,7 +324,7 @@ def lm_decode_step(params: DenseLM, tokens: Optional[torch.Tensor],
         batch["tokens"] = tokens
     x = _inputs(params, batch, cfg)
     pos3 = batch.get("pos3")
-    pos = cache["len"]                                           # [B]
+    pos = tp.local_rows(cache["len"], x.shape[0])                # [B]
     for i, layer in enumerate(params.layers):
         x = _cached_layer(layer, cache["k"][i], cache["v"][i], x, cfg, pos,
                           pos + 1, backend="naive", pos3=pos3)

@@ -11,9 +11,14 @@ fake group of ``launch/dryrun.py``, which lets one process stand for rank
 0 of a 256- or 512-chip mesh on fake tensors) and tears it down.
 
 ``use_mesh(mesh)`` makes ``mesh`` the ambient mesh for the code under it
-(a context variable, ``None`` outside): the models' ``fsdp_params`` and
-``moe_apply``'s expert-parallel branch read it with ``current_mesh()``.
-The production meshes are in ``launch/mesh.py``.
+(a context variable, ``None`` outside): the models' ``fsdp_params``,
+``moe_apply``'s expert-parallel branch and the tensor-parallel layers
+(``sharding/tp.py``) read it with ``current_mesh()``.
+``use_mesh(mesh, global_batch=n)`` also names the global batch of the
+step run under it, which rank-local tensors do not tell: the reference's
+``activation_hint`` picks the sequence split by it
+(``tp.sequence_parallel``).  The production meshes are in
+``launch/mesh.py``.
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ from typing import Iterator, Optional, Sequence
 
 _CURRENT: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
                                                           default=None)
+_BATCH: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_global_batch", default=None)
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str],
@@ -68,15 +75,24 @@ def mesh_chips(mesh) -> int:
 
 
 @contextlib.contextmanager
-def use_mesh(mesh) -> Iterator:
-    """``mesh`` is the ambient mesh inside the block."""
+def use_mesh(mesh, global_batch: Optional[int] = None) -> Iterator:
+    """``mesh`` is the ambient mesh inside the block, and
+    ``global_batch`` (``None``: not given) the global batch of the step
+    run in it."""
     token = _CURRENT.set(mesh)
+    btoken = _BATCH.set(global_batch)
     try:
         yield mesh
     finally:
+        _BATCH.reset(btoken)
         _CURRENT.reset(token)
 
 
 def current_mesh():
     """The ambient mesh, or ``None`` outside ``use_mesh``."""
     return _CURRENT.get()
+
+
+def current_global_batch() -> Optional[int]:
+    """The global batch ``use_mesh`` was given, or ``None``."""
+    return _BATCH.get()

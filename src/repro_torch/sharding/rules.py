@@ -28,13 +28,16 @@ no partitioner, so where the reference's sharding moves data the port
 moves it with an explicit functional collective:
 
   * ``replicate_hint`` of a DTensor all-gathers it at its use (backward:
-    a reduce-scatter); ``fsdp_params`` does so over a module's weights.
+    a reduce-scatter); ``fsdp_params`` does so over a module's weights
+    unless the config's ``fsdp`` is False, the reference's Megatron
+    tensor-parallel layout: then the weights stay sharded and the layers
+    compute on their local shards (``sharding/tp.py``).
 
 The reference's ``shard_hint`` and ``activation_hint`` only constrain how
 GSPMD lays out an activation.  Activations here are already the rank's
-own, so they have no counterpart.  Its ``fsdp=False`` layout (Megatron
-tensor parallelism, the weights left sharded) is not ported: on a mesh the
-weights are always gathered at use (ROADMAP queue 1 item 12c).
+own, so they have no counterpart; where the reference's layout splits an
+activation (the sequence of a prefill whose batch leaves ``"model"``
+idle, the decode query's Dh), ``sharding/tp.py`` does it by hand.
 
 Outside ``sharding.mesh.use_mesh`` both hints return their argument, bit
 for bit, and nothing of ``torch.distributed`` is imported.
@@ -165,23 +168,30 @@ def _tree_map(fn, tree: Any, path: Tuple[str, ...] = ()):
     return fn(path, tree)
 
 
-def batch_specs(batch: Any, mesh) -> Any:
-    """The batch dim over as many axes as divide it: ("pod", "data",
-    "model") - the model axis is the ZeRO shard domain and a batch axis -
-    falling back to ("pod", "data"), then replication (the reference's
-    ``fsdp=True``)."""
+def batch_axes(n: int, mesh) -> Tuple[str, ...]:
+    """The axes a batch of ``n`` rows goes over: the longest prefix of
+    ("pod", "data", "model") whose size divides it (none at all when
+    not even the first does)."""
     sizes = axis_sizes(mesh)
-    axes = tuple(a for a in ("pod", "data", "model") if a in sizes)
+    t = tuple(a for a in ("pod", "data", "model") if a in sizes)
+    while t:
+        k = math.prod(sizes[a] for a in t)
+        if n % k == 0 and n >= k:
+            break
+        t = t[:-1]
+    return t
+
+
+def batch_specs(batch: Any, mesh) -> Any:
+    """The batch dim over as many axes as divide it (``batch_axes``):
+    ("pod", "data", "model") - the model axis is the ZeRO shard domain
+    and a batch axis - falling back to ("pod", "data"), then replication
+    (the reference's ``fsdp=True``)."""
 
     def one(_, leaf):
         if leaf.ndim == 0:
             return P()
-        t = axes
-        while t:
-            n = math.prod(sizes[a] for a in t)
-            if leaf.shape[0] % n == 0 and leaf.shape[0] >= n:
-                break
-            t = t[:-1]
+        t = batch_axes(leaf.shape[0], mesh)
         if not t:
             return P(*(None,) * leaf.ndim)
         return P(t if len(t) > 1 else t[0], *(None,) * (leaf.ndim - 1))
@@ -195,24 +205,31 @@ def activation_spec(mesh, ndim: int = 3) -> P:
              *(None,) * (ndim - 1))
 
 
+def cache_rows(n: int, mesh):
+    """The spec entry of a cache's batch of ``n`` rows
+    (``cache_specs_tree``): the data axes when their size divides it,
+    else ``None``."""
+    sizes = axis_sizes(mesh)
+    da = data_axes(mesh)
+    data_size = math.prod(sizes[a] for a in da)
+    if n % max(data_size, 1) or n < data_size:
+        return None
+    return da if len(da) > 1 else (da[0] if da else None)
+
+
 def cache_specs_tree(cache: Any, mesh, *, batch_axis_of: int = 1) -> Any:
     """The decode cache's sharding: batch over the data axes (when it
     divides) and one non-batch dim over ``"model"``, the last one first
     (Dh of a KV cache, N of a Mamba state), else the widest that divides;
     ``len`` and scalars replicate."""
-    sizes = axis_sizes(mesh)
-    da = data_axes(mesh)
-    data_size = math.prod(sizes[a] for a in da)
-    dspec = da if len(da) > 1 else (da[0] if da else None)
-    msize = sizes.get(MODEL, 1)
+    msize = axis_sizes(mesh).get(MODEL, 1)
 
     def one(path, leaf):
         if leaf.ndim == 0 or path[-1] == "len":
             return P()
         dims = [None] * leaf.ndim
         b = leaf.shape[batch_axis_of] if leaf.ndim > batch_axis_of else 1
-        if b % max(data_size, 1) == 0 and b >= data_size:
-            dims[batch_axis_of] = dspec
+        dims[batch_axis_of] = cache_rows(b, mesh)
         if msize > 1:
             cand = [i for i in range(leaf.ndim - 1, 0, -1)
                     if i != batch_axis_of]
@@ -393,10 +410,12 @@ class _Gathered:
         return v
 
 
-def fsdp_params(tree: Any) -> Any:
-    """``replicate_hint`` over every weight of a module (or a tensor).
-    Outside a mesh the argument itself comes back."""
-    if current_mesh() is None:
+def fsdp_params(tree: Any, cfg=None) -> Any:
+    """``replicate_hint`` over every weight of a module (or a tensor),
+    unless ``cfg.fsdp`` is False (Megatron tensor parallelism: the
+    weights stay sharded).  Outside a mesh the argument itself comes
+    back."""
+    if current_mesh() is None or (cfg is not None and not cfg.fsdp):
         return tree
     if isinstance(tree, nn.Module):
         return _Gathered(tree)

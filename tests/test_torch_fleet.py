@@ -109,12 +109,11 @@ def test_fleet_identical_length_divergent_bucket():
     assert_results_identical(serial, fleet, "divergent bucket: ")
 
 
-def test_fleet_devices_beyond_one_raise():
+def test_fleet_devices_capped_without_group():
     """Without a process group the fleet runs on this process alone:
     ``devices=1`` is the plain fleet, and more is capped at the world of
     one, as the reference caps at ``jax.local_device_count()`` (the lanes
-    spread over ranks in tests/test_torch_fleet_mesh.py).  The name dates
-    from when ``devices`` above one raised; that case now caps."""
+    spread over ranks in tests/test_torch_fleet_mesh.py)."""
     exp = Experiment("paper-fabric", POLICIES, seeds=SEEDS, device="cpu")
     serial = exp.run()
     for devices in (1, 2):

@@ -7,10 +7,16 @@ The counterpart of tests/test_dryrun_mini.py's
 "model") mesh, the six families at ``train_4k`` cut to seq 64 and batch 8,
 and qwen3-4b's decode at seq 64 and batch 8: 7 results, each with FLOPs
 and wire bytes; the train cells all-gather their weights and
-reduce-scatter their gradients, the MoE cell runs its all-to-alls; the
+reduce-scatter their gradients, the MoE cell runs its all-to-alls, the
+decode (tensor parallel) all-gathers and all-reduces activations; the
 depth identity holds exactly on the FLOPs and the wire bytes of a train
-cell, and on every count of a decode cell; and one cell of the 16 x 16
-production mesh at its published config.
+cell, and on every count of a tensor-parallel decode cell and of a
+sequence-parallel prefill cell.  Each family's prefill at seq 64 (batch
+8, over both axes, and batch 2, which leaves "model" idle) and decode
+at seq 64 and batch 8 carry the reference's layout.  On the 16 x 16
+production mesh at published configs: whisper-base's decode, and the two
+decode_32k cells the FSDP stand-in did not fit on 80 GB (moonshot and
+qwen2-vl-72b), which fit tensor parallel.
 
 The step the dry run counts also runs for real on 8 spawned gloo ranks
 (``torch_mesh_ranks.zero_step``): qwen3-4b's smoke model in float32,
@@ -47,9 +53,9 @@ results, kinds = {}, {}
 with dryrun.fake_mesh((2, 4), ("data", "model")) as mesh:
     shape = dataclasses.replace(SHAPES["train_4k"], seq_len=64,
                                 global_batch=8)
-    cells = [(a, "train_4k", shape) for a in (
-        "qwen3-4b", "qwen3-moe-30b-a3b", "falcon-mamba-7b",
-        "jamba-v0.1-52b", "whisper-base", "qwen2-vl-72b")]
+    ARCHS = ("qwen3-4b", "qwen3-moe-30b-a3b", "falcon-mamba-7b",
+             "jamba-v0.1-52b", "whisper-base", "qwen2-vl-72b")
+    cells = [(a, "train_4k", shape) for a in ARCHS]
     cells.append(("qwen3-4b", "decode_32k", dataclasses.replace(
         SHAPES["decode_32k"], seq_len=64, global_batch=8)))
     for arch, name, sh in cells:
@@ -67,10 +73,30 @@ with dryrun.fake_mesh((2, 4), ("data", "model")) as mesh:
     _, depth_decode = dryrun.lower_cell(
         "qwen3-4b", "decode_32k", mesh=mesh, shape_override=cells[-1][2],
         cfg_override=dryrun.with_units(get_smoke_config("qwen3-4b"), 4))
-_, prod = dryrun.lower_cell("whisper-base", "decode_32k", multi_pod=False,
-                            extrapolate=False)
+    serving = {}
+    for name, b in (("prefill_32k", 8), ("prefill_32k", 2),
+                    ("decode_32k", 8)):
+        sh = dataclasses.replace(SHAPES[name], seq_len=64, global_batch=b)
+        for arch in ARCHS:
+            _, info = dryrun.lower_cell(
+                arch, name, mesh=mesh, shape_override=sh,
+                cfg_override=get_smoke_config(arch), extrapolate=False)
+            serving[f"{arch}/{name}/{b}"] = {
+                k: info[k] for k in ("layout", "reference_layout", "fits",
+                                     "wire_bytes")}
+            serving[f"{arch}/{name}/{b}"]["kinds"] = sorted(
+                info["roofline"]["collectives"])
+    _, depth_sp = dryrun.lower_cell(
+        "qwen3-4b", "prefill_32k", mesh=mesh,
+        shape_override=dataclasses.replace(SHAPES["prefill_32k"], seq_len=64,
+                                           global_batch=2),
+        cfg_override=dryrun.with_units(get_smoke_config("qwen3-4b"), 4))
+prod = {arch: dryrun.lower_cell(arch, "decode_32k", multi_pod=False,
+                                extrapolate=False)[1]
+        for arch in ("whisper-base", "moonshot-v1-16b-a3b", "qwen2-vl-72b")}
 print("RESULT " + json.dumps({"results": results, "kinds": kinds,
                               "depth": depth, "depth_decode": depth_decode,
+                              "depth_sp": depth_sp, "serving": serving,
                               "prod": prod}, default=str))
 """
 
@@ -99,7 +125,7 @@ def test_collective_kinds(run):
             assert {"all-gather", "reduce-scatter"} <= set(k), arch
     assert "all-to-all" in run["kinds"]["qwen3-moe-30b-a3b"]
     assert "all-to-all" in run["kinds"]["jamba-v0.1-52b"]
-    assert run["kinds"]["qwen3-4b-decode"] == ["all-gather"]
+    assert run["kinds"]["qwen3-4b-decode"] == ["all-gather", "all-reduce"]
 
 
 def test_depth_identity_exact_on_the_wire(run):
@@ -114,12 +140,10 @@ def test_depth_identity_exact_on_the_wire(run):
     assert info["roofline"]["collective_s"] > 0
 
 
-def test_depth_identity_exact_on_every_count_of_a_decode_cell(run):
-    """Off the train cells ZeRO shards no moment, so the bytes and the
-    ops extrapolate exactly too, and ``lower_cell`` holds them to it."""
-    info = run["depth_decode"]
+def _depth_exact(info, layout):
     d = info["depth"]
     assert info["mesh"] == "2x4" and d["equal"] and d["units"] == 4
+    assert info["layout"] == info["reference_layout"] == layout
     for k in ("flops", "bytes", "ops", "wire_bytes"):
         assert d["extrapolated"][k] == d["full"][k] and \
             d["per_unit"][k] > 0, k
@@ -127,16 +151,69 @@ def test_depth_identity_exact_on_every_count_of_a_decode_cell(run):
                                        "wire_bytes"]
 
 
+def test_depth_identity_exact_on_every_count_of_a_decode_cell(run):
+    """Off the train cells ZeRO shards no moment, so the bytes and the
+    ops extrapolate exactly too, and ``lower_cell`` holds them to it: in
+    a tensor-parallel decode cell (qwen3-4b at 4 layers, seq 64)."""
+    _depth_exact(run["depth_decode"], "tp (fsdp=False), batch over data")
+
+
+def test_depth_identity_exact_on_every_count_of_a_prefill_cell(run):
+    """The same in a sequence-parallel prefill cell (qwen3-4b at 4
+    layers, seq 64; its batch of 2 leaves "model" idle)."""
+    _depth_exact(run["depth_sp"], "sp, batch over data, sequence over model")
+
+
+def test_serving_cells_carry_the_reference_layout(run):
+    """Every prefill and decode cell of the six families at seq 64 runs
+    the reference's layout: decode tensor parallel (all-gathers and
+    all-reduces of activations; the Mamba families also reshard their
+    state by all-to-alls), a batch of 2 prefilled with the sequence over
+    "model" in the dense, moe and vlm families and FSDP in the others, a
+    batch of 8 (over both axes) FSDP, its K/V resharded into the cache's
+    layout by all-to-alls."""
+    serving = run["serving"]
+    assert len(serving) == 18
+    for key, cell in serving.items():
+        arch, name, b = key.split("/")
+        assert cell["layout"] == cell["reference_layout"], key
+        assert cell["fits"] and cell["wire_bytes"] > 0, key
+        if name == "decode_32k":
+            assert cell["layout"] == "tp (fsdp=False), batch over data"
+            assert {"all-gather", "all-reduce"} <= set(cell["kinds"]), key
+            assert ("all-to-all" in cell["kinds"]) == (
+                arch in ("falcon-mamba-7b", "jamba-v0.1-52b")), key
+        elif b == "8":
+            assert cell["layout"] == "fsdp, batch over data+model", key
+            assert "all-to-all" in cell["kinds"], key
+        elif arch in ("qwen3-4b", "qwen3-moe-30b-a3b", "qwen2-vl-72b"):
+            assert cell["layout"] == \
+                "sp, batch over data, sequence over model", key
+        else:
+            assert cell["layout"] == "fsdp, batch over data", key
+
+
 def test_production_mesh_cell(run):
     """whisper-base's decode_32k cell on 16 x 16 at its published config:
-    the batch of 128 over "data" only, so "model" holds replicas; the
-    reference runs this cell tensor parallel."""
-    info = run["prod"]
+    the batch of 128 over "data" only, and "model" runs the reference's
+    tensor parallelism."""
+    info = run["prod"]["whisper-base"]
     assert info["mesh"] == "16x16" and info["chips"] == 256
-    assert info["layout"] == "fsdp, batch over data"
-    assert info["reference_layout"].startswith("tp")
+    assert info["layout"] == info["reference_layout"] == \
+        "tp (fsdp=False), batch over data"
     assert info["counts"]["flops"] > 0 and info["wire_bytes"] > 0
     assert info["fits"] and info["batch"] == 128
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "qwen2-vl-72b"])
+def test_tensor_parallel_decode_fits_where_fsdp_did_not(run, arch):
+    """The two decode_32k cells on 16 x 16 at their published configs
+    whose FSDP stand-in peaked past 80 GB a chip (103.3 and 95.4 GiB)
+    fit tensor parallel: the weights stay sharded and each rank holds
+    its slice of the cache."""
+    info = run["prod"][arch]
+    assert info["layout"] == info["reference_layout"]
+    assert info["fits"] and info["peak_gib"] < 80, info["peak_gib"]
 
 
 def test_zero_step_on_eight_ranks_matches_one_device(tmp_path):

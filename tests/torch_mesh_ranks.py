@@ -243,13 +243,110 @@ def zero_step(rank: int, world: int, workdir: str) -> dict:
             "kinds": np.array(sorted({r.kind for r in recs}))}
 
 
+def _tree_local(tree, specs, mesh):
+    """A global tree of tensors (nested dicts) as this rank's shards."""
+    from repro_torch.sharding import rules
+    if isinstance(tree, dict):
+        return {k: _tree_local(v, specs[k], mesh) for k, v in tree.items()}
+    return tree[rules.local_slices(tree.shape, specs, mesh)].clone()
+
+
+def _flat(tree, prefix=""):
+    """{"a/b": leaf} of nested dicts."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def layouts(rank: int, world: int, workdir: str) -> dict:
+    """The serving layouts on a (2, 4) ("data", "model") mesh, for every
+    arch of ``layouts.json``: its weights restored from ``workdir/<arch>``
+    as DTensors placed by ``param_specs``, the batch of ``layouts_in.npz``
+    placed by ``batch_specs`` (its 2 rows over "data"), the cache by
+    ``cache_specs_tree``; the prefill under ``use_mesh(mesh,
+    global_batch=2)`` (the sequence over "model" in the transformer
+    families, FSDP in the others), then the decode ticks with
+    ``fsdp=False`` (tensor parallel), each fed its greedy tokens (the vlm
+    family the embeddings of ``layouts_in.npz``).  Returns every logits,
+    the tokens, the cache shard after the last tick, and the collectives
+    of the first tick by kind with each one's output bytes."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh, use_mesh
+    from repro_torch.models import get_model
+    from repro_torch.roofline.collectives import record_collectives
+    from repro_torch.sharding import rules, tp
+
+    mesh = make_mesh((2, 4), ("data", "model"), "cpu")
+    with open(os.path.join(workdir, "layouts.json")) as f:
+        spec = json.load(f)
+    with np.load(os.path.join(workdir, "layouts_in.npz")) as z:
+        arrays = {k: torch.from_numpy(v) for k, v in z.items()}
+    out = {"coord": np.array(mesh.get_coordinate())}
+    for arch in spec["archs"]:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32,
+                                  capacity_factor=spec["capacity_factor"])
+        api = get_model(cfg)
+        model = api.init(0, device="cpu")
+        model, _ = ckpt.restore(os.path.join(workdir, arch), model,
+                                shardings=rules.named(
+                                    mesh, rules.param_specs(model, mesh)))
+        batch = {k.split("/")[-1]: v for k, v in arrays.items()
+                 if k.startswith(arch + "/prefill/")}
+        b = next(iter(batch.values())).shape[0]
+        batch = _tree_local(batch, rules.batch_specs(batch, mesh), mesh)
+        cache = api.init_cache(b, spec["max_len"], device="cpu")
+        cache = _tree_local(cache, rules.cache_specs_tree(cache, mesh), mesh)
+        gathers = []
+        gather_seq = tp.gather_seq
+        tp.gather_seq = lambda t: gathers.append(t.shape) or gather_seq(t)
+        try:
+            with use_mesh(mesh, global_batch=b):
+                logits, cache = api.prefill(model, batch, cache,
+                                            backend="chunked")
+        finally:
+            tp.gather_seq = gather_seq
+        out[f"{arch}/seq_gathers"] = np.array(gathers).reshape(-1, 4)
+        out[f"{arch}/logits0"] = logits.numpy()
+        tp_api = get_model(dataclasses.replace(cfg, fsdp=False))
+        rows = rules.local_slices((b,), rules.P(rules.cache_rows(b, mesh)),
+                                  mesh)[0]
+        tokens = logits.argmax(-1).to(torch.int32)
+        for t in range(spec["ticks"]):
+            out[f"{arch}/tokens{t}"] = tokens.numpy()
+            with use_mesh(mesh), record_collectives() as recs:
+                if cfg.family == "vlm":
+                    extra = {k: arrays[f"{arch}/tick{t}/{k}"][rows]
+                             for k in ("embeds", "pos3")}
+                    logits, cache = tp_api.decode_step(model, None, cache,
+                                                       batch_extra=extra)
+                else:
+                    logits, cache = tp_api.decode_step(model, tokens, cache)
+            out[f"{arch}/logits{t + 1}"] = logits.numpy()
+            tokens = logits.argmax(-1).to(torch.int32)
+            if t == 0:
+                for kind in sorted({r.kind for r in recs}):
+                    out[f"{arch}/wire/{kind}"] = np.array(
+                        [r.bytes for r in recs if r.kind == kind])
+        for k, v in _flat(cache).items():
+            out[f"{arch}/cache/{k}"] = v.numpy()
+    return out
+
+
 def rules_leaf_map(model):
     from repro_torch.models.weights import leaf_map
     return leaf_map(model, model.cfg)
 
 
 PROGRAMS = {"moe_ep": moe_ep, "fleet_ckpt": fleet_ckpt,
-            "zero_step": zero_step}
+            "zero_step": zero_step, "layouts": layouts}
 
 
 def main(argv) -> int:
