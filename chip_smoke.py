@@ -297,6 +297,7 @@ result.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import json
@@ -3021,6 +3022,477 @@ def layout_mesh_main(world: int) -> int:
     return 0
 
 
+# phase 21: sequence-parallel training (ROADMAP item 12d).  (a) the split's
+# cross-rank pieces at full width: LAYOUT_SLICES ranks emulated as threads
+# of one process, each running the model code on its slice of LONG_PROMPT
+# positions with the split on, their gathers answered by concatenating
+# every thread's tensor: one falcon-mamba-7b Mamba block (the convolution's
+# left context and the scan's state passed along the slices) and one
+# qwen3-4b layer (K/V gathered along S), forward and gradients against the
+# whole call.  The whole call and the split differ in float order only:
+# the Mamba block's output is rounded to bf16 (one ulp is 2**-8 of a value)
+# and its chunks compose the scan's state from exp(a * sum dt) where the
+# whole scan multiplies step by step; the gradients of bf16 weights are
+# sums of the slices' bf16 contributions
+SPLIT_FWD_TOL = 1e-2
+SPLIT_GRAD_TOL = 2e-2
+# (b) ``--train-mesh N``: one AdamW step at global batch TRAIN_MESH_BATCH on
+# a (1, N) mesh (each card 2048 / N positions of both rows), every rank
+# against one card's step on its own card.  qwen3-4b whole; falcon-mamba-7b
+# at full width with its depth cut from 64 layers to 16 (2.22 B
+# parameters): one card's step then peaks at 59.75 GiB (NVIDIA H100 80GB
+# HBM3, 700.00 W), where the whole model's bf16 weights and grads and
+# float32 moments alone take 87 GB.  Tolerances, bf16, relative (the mesh
+# sums the bf16 grads of four ranks in another order): the loss within
+# TRAIN_MESH_LOSS_TOL, the grad norm within TRAIN_MESH_NORM_TOL, every
+# parameter's whole gradient (the ranks' mean) within TRAIN_MESH_GRAD_TOL
+# of its largest |g|, and at most TRAIN_MESH_DIFFER_TOL of the updated
+# elements other than one card's (AdamW's first step moves each element by
+# about lr sign(g), so only a gradient near rounding level may move it the
+# other way; a wrong step moves about half of them otherwise)
+TRAIN_MESH_BATCH = (2, LONG_PROMPT)
+TRAIN_MESH_ARCHS = (("qwen3-4b", 0), ("falcon-mamba-7b", 16))
+TRAIN_MESH_LOSS_TOL = 1e-5
+TRAIN_MESH_NORM_TOL = 2e-3
+TRAIN_MESH_GRAD_TOL = 5e-2
+TRAIN_MESH_DIFFER_TOL = 5e-2
+
+
+def split_threads(m: int, fn) -> list:
+    """``fn(r)`` for r in range(m), each in a thread of its own, with
+    ``sharding.tp``'s "model" axis emulated: the thread is rank r of m,
+    and each gather returns the concatenation of every thread's tensor in
+    rank order (a barrier on either side of it), so the model code's split
+    runs unchanged in one process with no group.  Returns the results and
+    the number of gathers each thread made."""
+    import threading
+
+    import torch
+
+    from repro_torch.sharding import tp
+    device = torch.cuda.current_device() if torch.cuda.is_available() \
+        else None
+    local = threading.local()
+    barrier = threading.Barrier(m, timeout=120)
+    deposits = [None] * m
+    calls = [0] * m
+
+    def model_axis():
+        return None, local.r, m
+
+    def gather_grad(t, dim):
+        deposits[local.r] = t
+        calls[local.r] += 1
+        barrier.wait()
+        out = torch.cat(list(deposits), dim % t.ndim)
+        barrier.wait()
+        return out
+
+    def run(r):
+        local.r = r
+        if torch.cuda.is_available():        # the caller's card, this thread
+            torch.cuda.set_device(device)
+        try:
+            return fn(r)
+        except BaseException:
+            barrier.abort()
+            raise
+    saved = tp.model_axis, tp.gather_grad
+    tp.model_axis, tp.gather_grad = model_axis, gather_grad
+    try:
+        with concurrent.futures.ThreadPoolExecutor(m) as pool:
+            outs = [f.result() for f in [pool.submit(run, r)
+                                         for r in range(m)]]
+    finally:
+        tp.model_axis, tp.gather_grad = saved
+    return outs, calls
+
+
+def split_compare(label, whole_fn, slice_fn, x, leaves, gathers) -> dict:
+    """``whole_fn(x)`` against LAYOUT_SLICES threads' ``slice_fn(x_r, r)``
+    concatenated along S (``split_threads``): the forward and the
+    gradients of sum(y * w) (w fixed, seed 21) with respect to x and each
+    of ``leaves``, each within SPLIT_FWD_TOL / SPLIT_GRAD_TOL of its
+    largest |value|; each thread must have made ``gathers`` gathers.  The
+    host times are the whole call's second forward and backward and the
+    split's first (threads, one after another on the card)."""
+    import torch
+    w = torch.randn(x.shape, generator=torch.Generator(
+        device=x.device).manual_seed(21), device=x.device)
+
+    def grads(y, xl):
+        return torch.autograd.grad((y.float() * w).sum(), [xl, *leaves])
+
+    xw = x.detach().clone().requires_grad_()
+    grads(whole_fn(xw), xw)                  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y_whole = whole_fn(xw)
+    g_whole = grads(y_whole, xw)
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    y_whole = y_whole.detach()
+    xs = x.detach().clone().requires_grad_()
+    n = x.shape[1] // LAYOUT_SLICES
+    t0 = time.perf_counter()
+    ys, calls = split_threads(LAYOUT_SLICES, lambda r: slice_fn(
+        xs[:, r * n:(r + 1) * n], r))
+    y_split = torch.cat(ys, 1)
+    g_split = grads(y_split, xs)
+    torch.cuda.synchronize()
+    split_s = time.perf_counter() - t0
+    check(calls == [gathers] * LAYOUT_SLICES,
+          f"{label}: gathers {calls}, expected {gathers} a slice")
+    errs = {"forward": max_abs_err(y_split.detach().float(),
+                                   y_whole.float())
+            / float(y_whole.abs().max())}
+    for name, a, b in zip(["x", *(f"leaf{i}" for i in range(len(leaves)))],
+                          g_split, g_whole):
+        errs[name] = max_abs_err(a.float(), b.float()) \
+            / max(float(b.abs().max()), 1e-30)
+        check(bool(a.isfinite().all()), f"{label}: gradient {name} not "
+              f"finite")
+    check(errs["forward"] <= SPLIT_FWD_TOL, f"{label}: forward {errs}")
+    check(max(v for k, v in errs.items() if k != "forward")
+          <= SPLIT_GRAD_TOL, f"{label}: gradients {errs}")
+    out = {"slices": LAYOUT_SLICES, "positions": x.shape[1],
+           "gathers_a_slice": gathers, "max_rel_err": errs,
+           "forward_bitwise": bool(torch.equal(y_split.detach(), y_whole)),
+           "whole_fwd_bwd_s": whole_s, "split_fwd_bwd_s": split_s,
+           "fwd_tol": SPLIT_FWD_TOL, "grad_tol": SPLIT_GRAD_TOL}
+    grad_errs = {k: float(f"{v:.3g}") for k, v in errs.items()
+                 if k != "forward"}
+    print(f"{label}: {LAYOUT_SLICES} slices of {n} positions, {gathers} "
+          f"gathers a slice; against the whole call, forward "
+          f"{errs['forward']:.3g} of the largest (bitwise "
+          f"{out['forward_bitwise']}), gradients {grad_errs}"
+          f" (tol {SPLIT_FWD_TOL} / {SPLIT_GRAD_TOL}); forward and backward "
+          f"{whole_s:.3f} s whole, {split_s:.3f} s split (threads)",
+          flush=True)
+    return out
+
+
+def split_phase(dev) -> dict:
+    """Phase 21(a): ``split_compare`` of one falcon-mamba-7b Mamba block
+    and one qwen3-4b layer at their published widths (random bf16 weights
+    from seed 21), over LONG_PROMPT positions of one row."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm, transformer
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    report = {}
+    cfg = get_config("falcon-mamba-7b")
+    blk = ssm.fill_mamba(ssm.Mamba(cfg, dev), gen, cfg)
+    x = torch.randn(1, LONG_PROMPT, cfg.d_model, generator=gen,
+                    device=dev).to(cfg.dtype)
+    h0 = torch.zeros(1, cfg.d_inner, cfg.ssm_state, device=dev)
+    report["falcon-mamba-7b"] = split_compare(
+        f"falcon-mamba-7b Mamba block (Di {cfg.d_inner}, N {cfg.ssm_state})",
+        lambda xx: ssm.mamba_mix(blk, xx, cfg, h0, backend="chunked")[0],
+        lambda xr, r: ssm.mamba_mix(blk, xr, cfg, h0, backend="chunked",
+                                    sp=True)[0],
+        x, [blk.in_x, blk.x_proj, blk.conv_w, blk.a_log], gathers=2)
+    del blk, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen3-4b")
+    layer = transformer.Layer(cfg, dev)
+    with torch.no_grad():
+        layer.ln1.scale.fill_(1)
+        layer.ln2.scale.fill_(1)
+        transformer.fill_attention(layer.attn, gen, cfg)
+        transformer.fill_ffn(layer, gen)
+    x = torch.randn(1, LONG_PROMPT, cfg.d_model, generator=gen,
+                    device=dev).to(cfg.dtype)
+    report["qwen3-4b"] = split_compare(
+        "qwen3-4b layer (K/V gathered along S)",
+        lambda xx: transformer.layer_apply(layer, xx, cfg,
+                                           backend="chunked")[0],
+        lambda xr, r: transformer.layer_apply(layer, xr, cfg,
+                                              backend="chunked", sp=True)[0],
+        x, [layer.attn.wq, layer.attn.wk, layer.attn.wv, layer.mlp.wi],
+        gathers=2)
+    del layer, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def train_mesh_cfg(arch: str, layers: int):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def train_mesh_predictions(world: int) -> dict:
+    """The wire bytes a rank of ``--train-mesh world`` should move in its
+    step, by the dry run on fake tensors under a fake group of ``world``
+    ranks (no device)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline.collectives import collective_stats
+    b, s = TRAIN_MESH_BATCH
+    out = {}
+    with dryrun.fake_mesh((1, world), ("data", "model")) as mesh:
+        for arch, layers in TRAIN_MESH_ARCHS:
+            recs = []
+            counts, _ = dryrun.lower_one(
+                train_mesh_cfg(arch, layers), ShapeSpec("train", s, b,
+                                                        "train"),
+                backend="chunked", remat=True, microbatch=0, mesh=mesh,
+                records=recs)
+            st = collective_stats(recs)
+            out[arch] = {"wire_bytes": st.wire_bytes,
+                         "collectives": st.counts,
+                         "peak_gib": counts.peak_bytes / 2**30,
+                         "layout": dryrun._layout(
+                             train_mesh_cfg(arch, layers),
+                             ShapeSpec("train", s, b, "train"), mesh)}
+    return out
+
+
+def train_compare(dev, mesh, arch: str, layers: int) -> dict:
+    """``--train-mesh`` on one rank: ``arch`` at its published widths
+    (depth ``layers``, 0 for all; random bf16 weights from seed 0 on the
+    card) and one TokenPipeline batch of TRAIN_MESH_BATCH: one AdamW step
+    on one card, then the same step from the same weights placed on
+    ``mesh`` by ``param_specs`` with ZeRO moments under ``use_mesh(mesh,
+    global_batch=2)`` (the sequence over "model"): the loss, the grad
+    norm, every parameter's gradient and its update against one card's,
+    the first step's collectives by kind and wire bytes, each path's peak
+    over two steps and its second step's ms."""
+    import functools
+
+    import torch
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import get_model
+    from repro_torch.roofline.collectives import (collective_stats,
+                                                  record_collectives)
+    from repro_torch.sharding import rules
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    from repro_torch.train import AdamWConfig, make_train_step, zero
+    from repro_torch.train import init as opt_init
+    from repro_torch.train import update as opt_update
+
+    cfg = train_mesh_cfg(arch, layers)
+    api = get_model(cfg)
+    b, s = TRAIN_MESH_BATCH
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in TokenPipeline(
+        vocab=cfg.vocab, batch=b, seq=s).batch_at(0).items()}
+    ocfg = AdamWConfig(lr_peak=TRAIN_LR, total_steps=TRAIN_STEPS,
+                       warmup_steps=1)
+
+    def first(step, model, opt, ctx):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with ctx() as recs:
+            model, opt, met = step(model, opt, batch)
+        return model, opt, {k: float(v) for k, v in met.items()}, recs
+
+    def second(step, model, opt, ctx) -> dict:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ctx():
+            step(model, opt, batch)
+        torch.cuda.synchronize()
+        return {"step_ms": (time.perf_counter() - t0) * 1e3,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    def plain():
+        return contextlib.nullcontext([])
+
+    @contextlib.contextmanager
+    def on_mesh():
+        with use_mesh(mesh, global_batch=b), record_collectives() as recs:
+            yield recs
+
+    def kept(update, keep: dict, host):
+        """``update``, which keeps its first call's gradients on the host
+        (``host(g)``) in ``keep``."""
+        def run(c, grads, *a, **kw):
+            if not keep:
+                keep.update({n: host(g) for n, g in grads.items()})
+            return update(c, grads, *a, **kw)
+        return run
+
+    model = api.init(0, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    one_grads: dict = {}
+    step = make_train_step(api, ocfg, update=kept(
+        opt_update, one_grads, lambda g: g.to("cpu", copy=True)))
+    model, opt, one_met, _ = first(step, model, opt_init(ocfg, model),
+                                   plain)
+    one_after = {n: p.detach().to("cpu", copy=True)
+                 for n, p in model.named_parameters()}
+    one = second(step, model, opt, plain)
+    del model, opt
+    model = api.init(0, device=dev)
+    pspecs = rules.param_specs(model, mesh)
+    rules.distribute(model, pspecs, mesh)
+    mesh_grads: dict = {}
+    mstep = make_train_step(api, ocfg, update=kept(functools.partial(
+        zero.update, pspecs=pspecs, mesh=mesh), mesh_grads, lambda g: (
+            g.to_local().to("cpu", copy=True), g.placements, g.shape,
+            g.stride())))
+    model, opt, met, recs = first(mstep, model, zero.moments(
+        ocfg, model, rules.opt_state_specs(model, mesh), mesh), on_mesh)
+    worst, differ, total = 0.0, 0, 0
+    for name, p in model.named_parameters():
+        got = p.detach().full_tensor().float()
+        want = one_after[name].to(dev).float()
+        ulp = torch.where(want == 0, torch.zeros_like(want),
+                          2.0 ** (torch.floor(torch.log2(want.abs())) - 7))
+        worst = max(worst, float((((got - want).abs() - ulp)
+                                  / TRAIN_LR).max()))
+        differ += int((got != want).sum())
+        total += got.numel()
+    del got, want, ulp
+    meshed = second(mstep, model, opt, on_mesh)
+    del model, opt, one_after
+    gc.collect()
+    torch.cuda.empty_cache()
+    # each parameter's whole gradient: the ranks' mean (zero.update's)
+    grad_err, grad_worst = {}, ("", 0.0)
+    world = mesh.size()
+    for name, (local, pls, shape, stride) in mesh_grads.items():
+        g = DTensor.from_local(
+            local.to(dev), mesh, [pl if isinstance(pl, Shard) else Partial()
+                                  for pl in pls], run_check=False,
+            shape=shape, stride=stride).full_tensor().float() / world
+        want = one_grads[name].to(dev).float()
+        grad_err[name] = max_abs_err(g, want) / max(
+            float(want.abs().max()), 1e-30)
+        if grad_err[name] >= grad_worst[1]:
+            grad_worst = (name, grad_err[name])
+    del g, want, mesh_grads, one_grads
+    st = collective_stats(recs)
+    rel_loss = abs(met["loss"] - one_met["loss"]) / abs(one_met["loss"])
+    rel_norm = abs(met["grad_norm"] - one_met["grad_norm"]) \
+        / one_met["grad_norm"]
+    label = f"{arch} ({n_params} parameters) on a {tuple(mesh.shape)} mesh"
+    check(met["tokens"] == one_met["tokens"], f"{label}: tokens "
+          f"{met['tokens']} against one card's {one_met['tokens']}")
+    check(rel_loss <= TRAIN_MESH_LOSS_TOL and rel_norm <= TRAIN_MESH_NORM_TOL,
+          f"{label}: loss {met['loss']} (one card {one_met['loss']}), grad "
+          f"norm {met['grad_norm']} (one card {one_met['grad_norm']})")
+    check(grad_worst[1] <= TRAIN_MESH_GRAD_TOL, f"{label}: gradient of "
+          f"{grad_worst[0]} {grad_worst[1]} of its largest from one card's")
+    check(differ / total <= TRAIN_MESH_DIFFER_TOL, f"{label}: "
+          f"{differ / total} of the updated elements differ from one "
+          f"card's")
+    out = {"arch": arch, "layers": cfg.n_layers, "params": n_params,
+           "batch": list(TRAIN_MESH_BATCH),
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "loss": met["loss"], "one_card_loss": one_met["loss"],
+           "grad_norm": met["grad_norm"],
+           "one_card_grad_norm": one_met["grad_norm"],
+           "tokens": met["tokens"], "rel_err_loss": rel_loss,
+           "rel_err_grad_norm": rel_norm, "update_excess_lr": worst,
+           "params_differing": differ / total,
+           "grad_rel_err_worst": grad_worst,
+           "grad_rel_err": grad_err, "collectives": st.counts,
+           "wire_bytes": st.wire_bytes, "mesh_path": meshed,
+           "one_card": one}
+    print(f"{label}: loss {met['loss']:.6f} (one card "
+          f"{one_met['loss']:.6f}, {rel_loss:.3g}), grad norm "
+          f"{met['grad_norm']:.6f} ({one_met['grad_norm']:.6f}, "
+          f"{rel_norm:.3g}), tokens {met['tokens']:.0f}; gradients within "
+          f"{grad_worst[1]:.3g} of the largest ({grad_worst[0]}); updated "
+          f"parameters at most {worst:.3g} lr past one ulp from one "
+          f"card's, {differ / total:.3g} of them differ; collectives "
+          f"{st.counts} "
+          f"({st.wire_bytes:.0f} wire bytes a rank); second step "
+          f"{meshed['step_ms']:.1f} ms (one card {one['step_ms']:.1f}), "
+          f"peak {meshed['peak_gib']:.2f} GiB (one card "
+          f"{one['peak_gib']:.2f})", flush=True)
+    return out
+
+
+def train_mesh_rank(rank: int, world: int, workdir: str) -> None:
+    """One rank of ``--train-mesh``: ``train_compare`` of each of
+    TRAIN_MESH_ARCHS on cuda:rank over a (1, world) ("data", "model")
+    NCCL mesh."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    dev = torch.device(f"cuda:{rank}")
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(workdir, 'store')}",
+        rank=rank, world_size=world, device_id=dev,
+        timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh((1, world), ("data", "model"))
+        out = {arch: train_compare(dev, mesh, arch, layers)
+               for arch, layers in TRAIN_MESH_ARCHS}
+        with open(os.path.join(workdir, f"train{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def train_mesh_main(world: int) -> int:
+    """``python3 chip_smoke.py --train-mesh N``: phase 21(b) over N cards
+    (one NCCL rank a card, a (1, N) mesh): each of TRAIN_MESH_ARCHS
+    trains one step with the sequence over "model", every rank against
+    one card's step and its wire bytes against the dry run's count on fake
+    tensors.  Prints each rank's report and the card line.  Needs N
+    cards."""
+    import multiprocessing
+    import tempfile
+
+    import torch
+    check(torch.cuda.device_count() >= world,
+          f"--train-mesh {world}: {torch.cuda.device_count()} cards")
+    with tempfile.TemporaryDirectory() as d:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=train_mesh_rank, args=(r, world, d))
+                 for r in range(world)]
+        t1 = time.perf_counter()
+        for pr in procs:
+            pr.start()
+        # the dry run's count on this host's CPU while the ranks train
+        predicted = train_mesh_predictions(world)
+        print(f"dry-run predictions over {world} ranks "
+              f"({time.perf_counter() - t1:.1f} s): {predicted}", flush=True)
+        deadline = time.monotonic() + 900
+        for pr in procs:
+            pr.join(timeout=max(1.0, deadline - time.monotonic()))
+        codes = [pr.exitcode for pr in procs]
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+        check(codes == [0] * world, f"train ranks exited {codes}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(d, f"train{r}.json")) as f:
+                ranks.append(json.load(f))
+    for r, rep in enumerate(ranks):
+        for arch, _ in TRAIN_MESH_ARCHS:
+            want = predicted[arch]["wire_bytes"]
+            got = rep[arch]["wire_bytes"]
+            check(got == want, f"rank {r} {arch}: {got} wire bytes, the dry "
+                  f"run {want}")
+            check(rep[arch]["loss"] == ranks[0][arch]["loss"],
+                  f"rank {r} {arch}: loss differs from rank 0's")
+    print(json.dumps({"train_mesh": ranks, "predicted": predicted,
+                      "spawn_s": time.perf_counter() - t1}))
+    print(gpu_line())
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3031,6 +3503,8 @@ def main() -> int:
         return ep_mesh_main(int(sys.argv[2]))
     if sys.argv[1:2] == ["--layout-mesh"]:
         return layout_mesh_main(int(sys.argv[2]))
+    if sys.argv[1:2] == ["--train-mesh"]:
+        return train_mesh_main(int(sys.argv[2]))
     import multiprocessing
     import numpy as np
 
@@ -4005,6 +4479,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("20 the serving layouts on CUDA"):
         layouts = layout_phase(dev, floor_ms)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("21 sequence-parallel training on CUDA"):
+        for kern in kernels:
+            kern.reset_launch_count()
+        split = split_phase(dev)
+        split["launches"] = {k.__name__.rsplit(".", 2)[-2]:
+                             k.launch_count() for k in kernels}
+        check(not any(split["launches"].values()), f"phase 21: kernel "
+              f"launches {split['launches']} (the plain backends train)")
     print(f"sum of phases: {sum(PHASE_S.values()):.3f} s "
           f"({', '.join(f'{k} {v:.1f}' for k, v in PHASE_S.items())})")
 
@@ -4135,7 +4620,8 @@ def main() -> int:
         "serve": serve, "serve_ssm": serve_ssm, "serve_moe": serve_moe,
         "serve_hybrid": serve_hybrid, "serve_whisper": serve_whisper,
         "serve_vlm": serve_vlm, "train": train, "tooling": tooling,
-        "mesh": mesh, "layouts": layouts, "phase_s": PHASE_S},
+        "mesh": mesh, "layouts": layouts, "split_train": split,
+        "phase_s": PHASE_S},
         default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -28,8 +28,9 @@ rank-local tensors under ``use_mesh(mesh, global_batch=)``.  The
 functional collectives it dispatches give the wire bytes
 (``roofline/collectives.py``); ``collective_s`` divides them by
 ``hw.H100_SCALEOUT_BW``.  Layouts, the reference's as its dry run and
-models select them (``_layouts``; each record names the port's
-``layout`` and the ``reference_layout``):
+models select them, which the port runs in every cell (``_layout``;
+each record names it as both its ``layout`` and its
+``reference_layout``):
 
 * decode: Megatron tensor parallelism (``fsdp=False``, as the
   reference's ``lower_one`` sets it): the weights stay sharded, the
@@ -41,10 +42,26 @@ models select them (``_layouts``; each record names the port's
 * any other prefill (the ssm, hybrid and audio families, whose
   reference prefills constrain no activation, or a batch over
   ``"model"`` too): FSDP, with the batch over ``batch_specs``' axes;
-* train: FSDP (+ EP for MoE).  Where the batch leaves ``"model"`` idle
-  (``train_4k`` on 2 x 16 x 16) the reference runs the sequence over it
-  in every family; the port does not yet (ROADMAP item 12d), and the
-  record's ``layout`` says so.
+* train: where the batch leaves ``"model"`` idle and the sequence
+  divides it (``train_4k`` on 2 x 16 x 16), the sequence over it in
+  every family (the reference's ``activation_hint`` in each train
+  forward; whisper's encoder only where ``enc_seq`` divides it too, so
+  not its 1500 frames over 16); otherwise FSDP with the batch over
+  ``batch_specs``' axes;
+* a MoE layer runs expert parallelism where the global batch divides the
+  whole mesh (the reference's ``moe_ep.ep_applicable``; a train record
+  says ``+ep``), and the dense path with the expert banks gathered
+  otherwise, the sequence split included (2 x 16 x 16's batch of 256
+  does not divide its 512 chips).
+
+Under ``remat`` each layer's forward runs again in the backward pass, and
+so do its collectives: the FSDP weight gathers and, under the sequence
+split, the K/V gathers along S and the Mamba blocks' two gathers; the
+count includes them (wire bytes a rank: forward, recompute and the
+reduce-scatters of the backward).  A Mamba block under the split also
+runs its chunk's scan twice (once from zero for the chunk's map, once
+from the state the previous ranks hand it); the count holds both, in
+bytes and ops (a scan is no product, so no FLOPs).
 
 Depth: XLA counts a ``lax.scan`` body once, so the reference unrolls its
 layer scans (``repro.util.unrolled_counting``) and extrapolates from
@@ -53,7 +70,13 @@ depth 1 and 2.  Eager runs every layer, so no switch is needed:
 depth, records outside + L x per_layer beside the full count, and checks
 that FLOPs, bytes and ops agree exactly, and over a mesh the wire bytes
 too (a train cell on a mesh: the FLOPs and the wire bytes, see
-``MESH_TRAIN_EXACT``).
+``MESH_TRAIN_EXACT``).  A train cell's ZeRO update is counted at each
+depth but not extrapolated: the reference's ``opt_state_specs`` puts a
+moment's data-axis shard on the layer stack's dim when the depth divides
+the data axes, so a shallow count may all-reduce a gradient that the
+full depth reduce-scatters (falcon-mamba-7b's [L, 8192] leaves on
+2 x 16 x 16); its wire bytes at full depth are added to the
+extrapolated forward and backward's.
 
 ``--fit-only`` (``lower_cell(fit_only=True)``) answers only whether a
 cell fits: each count stops once more than the card's bytes are live, so
@@ -157,9 +180,9 @@ def _recorded(fn, records: Optional[List[Any]]):
     return run
 
 
-def _layouts(cfg, shape: ShapeSpec, mesh) -> Tuple[str, str]:
-    """(the port's layout of a mesh cell, the reference's), as the module
-    docstring lists them."""
+def _layout(cfg, shape: ShapeSpec, mesh) -> str:
+    """The layout of a mesh cell, the reference's as its dry run and
+    models select it and the port's (the module docstring lists them)."""
     def over(axes) -> str:
         axes = axes if isinstance(axes, tuple) else (axes,)
         return "+".join(a for a in axes if a) or "none"
@@ -168,21 +191,16 @@ def _layouts(cfg, shape: ShapeSpec, mesh) -> Tuple[str, str]:
     split = ("model" not in axes
              and shape.seq_len % axis_sizes(mesh)["model"] == 0)
     if shape.kind == "decode":
-        lay = (f"tp (fsdp=False), batch over "
-               f"{over(rules.cache_rows(shape.global_batch, mesh))}")
-        return lay, lay
+        return (f"tp (fsdp=False), batch over "
+                f"{over(rules.cache_rows(shape.global_batch, mesh))}")
+    if split and (shape.kind == "train" or cfg.family in SP_FAMILIES):
+        return f"sp, batch over {over(axes)}, sequence over model"
     if shape.kind == "prefill":
-        lay = f"fsdp, batch over {over(axes)}"
-        if split and cfg.family in SP_FAMILIES:
-            lay = f"sp, batch over {over(axes)}, sequence over model"
-        return lay, lay
-    ep = "+ep" if cfg.is_moe_arch else ""
-    port = f"fsdp{ep}, batch over {over(axes)}"
-    if split:
-        return (port + "; 'model' idle (sequence-parallel training is "
-                "ROADMAP item 12d)",
-                f"sp{ep}, batch over {over(axes)}, sequence over model")
-    return port, port
+        return f"fsdp, batch over {over(axes)}"
+    # expert parallelism where the global batch divides the whole mesh
+    # (moe_ep.ep_applicable's rule, the reference's)
+    ep = "+ep" if cfg.is_moe_arch and "model" in axes else ""
+    return f"fsdp{ep}, batch over {over(axes)}"
 
 
 def depth_units(cfg) -> int:
@@ -202,14 +220,17 @@ def with_units(cfg, u: int):
 def lower_one(cfg, shape: ShapeSpec, *, backend: str, remat: bool,
               microbatch: int, stop_bytes: float = float("inf"),
               cache_len: int = 0, mesh=None,
-              records: Optional[List[Any]] = None) -> Tuple[Counts, Any]:
+              records: Optional[List[Any]] = None,
+              update_records: Optional[List[Any]] = None
+              ) -> Tuple[Counts, Any]:
     """Count one step function for one cfg/shape on fake tensors:
     ``(Counts, the model's parameters)``; past ``stop_bytes`` live the
     count stops (``counting.count``).  A prefill's or decode's cache holds
     ``cache_len`` positions (0: the shape's ``seq_len``).  With ``mesh`` (a
     ``DeviceMesh`` over a group set up by the caller, e.g. ``fake_mesh``)
     the count is this rank's (see the module docstring); the collectives
-    it dispatched are appended to ``records``."""
+    it dispatched are appended to ``records``, and a train step's ZeRO
+    update's to ``update_records`` too."""
     if shape.kind == "decode":
         # the reference's lower_one: decode runs Megatron TP (outside a
         # mesh the flag changes nothing)
@@ -234,8 +255,8 @@ def lower_one(cfg, shape: ShapeSpec, *, backend: str, remat: bool,
                 opt = zero.moments(ocfg, params,
                                    rules.opt_state_specs(params, mesh), mesh)
                 batch = _local(batch, mesh)
-                update = functools.partial(zero.update, pspecs=pspecs,
-                                           mesh=mesh)
+                update = _recorded(functools.partial(
+                    zero.update, pspecs=pspecs, mesh=mesh), update_records)
             step = make_train_step(api, ocfg, backend=backend, remat=remat,
                                    microbatch=microbatch, update=update)
             counts, _ = count(_recorded(step, records), params, opt, batch,
@@ -308,34 +329,46 @@ def lower_cell(arch: str, shape_name: str, *, backend: str = "chunked",
             else MESH)
     linear = MESH_LINEAR if mesh is not None else LINEAR
 
-    def counted(c: Counts, recs) -> Dict[str, float]:
-        raw = raw_counts(c, recs, num_partitions=chips)
-        return {"flops": c.flops, "bytes": c.bytes, "ops": c.ops,
-                "wire_bytes": raw["wire_bytes"]}
+    def wire(c: Counts, recs) -> float:
+        return raw_counts(c, recs, num_partitions=chips)["wire_bytes"]
 
-    def one(cfg_) -> Tuple[Counts, Any, list]:
+    def counted(c: Counts, recs, urecs=()) -> Dict[str, float]:
+        """The counts, the wire bytes less those of ``urecs``."""
+        return {"flops": c.flops, "bytes": c.bytes, "ops": c.ops,
+                "wire_bytes": wire(c, recs) - wire(c, urecs)}
+
+    def one(cfg_) -> Tuple[Counts, Any, list, list]:
         recs: list = []
-        c, p = lower_one(cfg_, shape, records=recs, **kw)
-        return c, p, recs
+        urecs: list = []
+        c, p = lower_one(cfg_, shape, records=recs, update_records=urecs,
+                         **kw)
+        return c, p, recs, urecs
 
     t0 = time.time()
-    counts, params, recs = one(cfg)
+    counts, params, recs, urecs = one(cfg)
     t_count = time.time() - t0
     full = {k: counted(counts, recs)[k] for k in linear}
 
     units = depth_units(cfg)
     depth = None
     if extrapolate and units > 2 and counts.complete:
-        c1, _, recs1 = one(with_units(cfg, 1))
-        c2, _, recs2 = one(with_units(cfg, 2))
-        r1, r2 = counted(c1, recs1), counted(c2, recs2)
+        c1, _, recs1, urecs1 = one(with_units(cfg, 1))
+        c2, _, recs2, urecs2 = one(with_units(cfg, 2))
+        r1, r2 = counted(c1, recs1, urecs1), counted(c2, recs2, urecs2)
         per = {k: r2[k] - r1[k] for k in linear}
         outside = {k: r1[k] - per[k] for k in linear}
         extrap = {k: outside[k] + per[k] * units for k in linear}
+        # the ZeRO update's wire bytes, counted at each depth and added
+        # at the full depth's (the module docstring)
+        update_wire = {"1": wire(c1, urecs1), "2": wire(c2, urecs2),
+                       "full": wire(counts, urecs)}
+        if "wire_bytes" in extrap:
+            extrap["wire_bytes"] += update_wire["full"]
         exact = MESH_TRAIN_EXACT if mesh is not None and \
             shape.kind == "train" else linear
         depth = {"units": units, "per_unit": per, "outside": outside,
                  "extrapolated": extrap, "full": full,
+                 "update_wire_bytes": update_wire,
                  "equal": all(extrap[k] == full[k] for k in exact),
                  "equal_keys": [k for k in linear if extrap[k] == full[k]]}
         if not depth["equal"]:
@@ -368,7 +401,7 @@ def lower_cell(arch: str, shape_name: str, *, backend: str = "chunked",
         "step_bound_s": rep.step_time_s,
     }
     if mesh is not None:
-        info["layout"], info["reference_layout"] = _layouts(cfg, shape,
+        info["layout"] = info["reference_layout"] = _layout(cfg, shape,
                                                             mesh)
         info["wire_bytes"] = rc["wire_bytes"]
         info["collective_bw"] = H100_SCALEOUT_BW

@@ -23,9 +23,10 @@ over ``"model"`` in all four K/V leaves): the prefill, FSDP with no
 sequence split (the reference's constrains no activation), writes that
 layout, and a decode step with ``cfg.fsdp`` False runs tensor parallel,
 both its attentions over the Dh-sharded caches
-(``attention.decode_attention``).  The encoder's 1500 frames do not
-divide a 16-way axis, so it runs whole on every rank, as in the
-reference.
+(``attention.decode_attention``).  The train forward splits each stack's
+sequence over ``"model"`` where the global batch leaves it idle
+(``encdec_apply``); the encoder's 1500 frames do not divide a 16-way
+axis, so there it runs whole on every rank, as in the reference.
 """
 from __future__ import annotations
 
@@ -112,45 +113,63 @@ def encdec_init(gen: torch.Generator, cfg: ModelConfig) -> EncDecLM:
 
 
 def _enc_layer(lp: EncLayer, x: torch.Tensor, cfg: ModelConfig, *,
-               backend: str) -> torch.Tensor:
+               backend: str, sp: bool = False) -> torch.Tensor:
+    """One encoder layer; with ``sp`` x holds this rank's frames (RoPE
+    from its first, K/V gathered along S)."""
     attn = fsdp_params(lp.attn, cfg)
     h = rmsnorm(lp.ln1, x)
     q, k, v = qkv_project(attn, h, cfg)
-    q, k = _rope(cfg, q, k, 0)
+    q, k = _rope(cfg, q, k, tp.local_start(x.shape[1]) if sp else 0)
+    if sp:
+        k, v = tp.gather_seq(k), tp.gather_seq(v)
     o = attn_mod.attention(q, k, v, causal=False, backend=backend)
     x = x + out_project(attn, o)
     return x + mlp(fsdp_params(lp.mlp, cfg), rmsnorm(lp.ln2, x))
 
 
 def encode(params: EncDecLM, enc_embeds: torch.Tensor, cfg: ModelConfig,
-           *, backend: str = "chunked", remat: bool = True) -> torch.Tensor:
+           *, backend: str = "chunked", remat: bool = True,
+           sp: bool = False) -> torch.Tensor:
     """enc_embeds [B, Se, D] -> the encoder's output [B, Se, D] in the
-    config's dtype; ``remat`` as ``encdec_apply``'s."""
+    config's dtype; ``remat`` as ``encdec_apply``'s.  With ``sp`` the
+    frames are this rank's Se/m under the sequence split, and so is the
+    output."""
     x = enc_embeds.to(cfg.dtype)
     for lp in params.enc_layers:
         x = remat_call(functools.partial(_enc_layer, lp, cfg=cfg,
-                                         backend=backend), x, remat=remat)
+                                         backend=backend, sp=sp), x,
+                       remat=remat)
     return rmsnorm(params.enc_norm, x)
 
 
 def _dec_layer(lp: DecLayer, x: torch.Tensor, enc_out: torch.Tensor,
                cfg: ModelConfig, *, backend: str,
-               cache: Optional[Tuple[torch.Tensor, ...]] = None
-               ) -> torch.Tensor:
+               cache: Optional[Tuple[torch.Tensor, ...]] = None,
+               sp: bool = False, enc_sp: bool = False) -> torch.Tensor:
     """One decoder layer over a prompt from position 0: causal
     self-attention, cross-attention over ``enc_out``, MLP.  With
     ``cache`` (this layer's k, v, enc_k and enc_v views) it also writes
     the self-attention's k/v at [0, S) and the cross K/V of ``enc_out``,
-    in place."""
+    in place.  Under the sequence split (training): with ``sp`` x holds
+    this rank's positions (RoPE from its first, K/V gathered along S,
+    the causal attention at that ``q_offset``); with ``enc_sp``
+    ``enc_out`` holds this rank's frames and the cross K/V are gathered
+    along them."""
     self_attn = fsdp_params(lp.self_attn, cfg)
     cross_attn = fsdp_params(lp.cross_attn, cfg)
     h = rmsnorm(lp.ln1, x)
     q, k, v = qkv_project(self_attn, h, cfg)
-    q, k = _rope(cfg, q, k, 0)
-    o = attn_mod.attention(q, k, v, causal=True, backend=backend)
+    start = tp.local_start(x.shape[1]) if sp else 0
+    q, k = _rope(cfg, q, k, start)
+    if sp:
+        k, v = tp.gather_seq(k), tp.gather_seq(v)
+    o = attn_mod.attention(q, k, v, causal=True, q_offset=start,
+                           backend=backend)
     x = x + out_project(self_attn, o)
     qx, ek, ev = qkv_project(cross_attn, rmsnorm(lp.ln_x, x), cfg,
                              kv_x=enc_out)
+    if enc_sp:
+        ek, ev = tp.gather_seq(ek), tp.gather_seq(ev)
     if cache is not None:
         kc, vc, ekc, evc = cache
         s = x.shape[1]
@@ -171,13 +190,22 @@ def encdec_apply(params: EncDecLM, batch: Dict[str, torch.Tensor],
     [B,Sd,D], ``aux_loss`` (0) and, unless ``logits=False``, ``logits``
     [B,Sd,V] float32.  Differentiable; ``remat`` rematerialises each
     encoder and each decoder layer in the backward pass
-    (``layers.remat_call``)."""
-    enc_out = encode(params, batch["enc_embeds"], cfg, backend=backend,
-                     remat=remat)
-    x = embed(params.embed, batch["tokens"], cfg)
+    (``layers.remat_call``).  The reference's ``activation_hint`` at each
+    layer boundary splits each stack by its own length
+    (``tp.sequence_parallel``): the decoder's Sd, the encoder's Se where
+    that divides "model" too (whisper's 1500 frames do not divide 16, so
+    there the encoder runs whole on every rank); each rank then returns
+    its Sd/m positions."""
+    enc, tokens = batch["enc_embeds"], batch["tokens"]
+    enc_sp = tp.sequence_parallel(cfg, enc.shape[1])
+    sp = tp.sequence_parallel(cfg, tokens.shape[1])
+    enc_out = encode(params, tp.chunk(enc, 1) if enc_sp else enc, cfg,
+                     backend=backend, remat=remat, sp=enc_sp)
+    x = embed(params.embed, tp.chunk(tokens, 1) if sp else tokens, cfg)
     for lp in params.dec_layers:
         x = remat_call(functools.partial(_dec_layer, lp, cfg=cfg,
-                                         backend=backend),
+                                         backend=backend, sp=sp,
+                                         enc_sp=enc_sp),
                        x, enc_out, remat=remat)
     x = rmsnorm(params.final_norm, x)
     out = {"hidden": x, "aux_loss": torch.zeros((), dtype=torch.float32,

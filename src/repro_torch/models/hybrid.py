@@ -27,7 +27,10 @@ On a mesh the cache may hold the rank's shard (``cache_specs_tree``): the
 prefill, which runs FSDP with no sequence split (the reference's hybrid
 prefill constrains no activation), writes every leaf in that layout, and
 a decode step with ``cfg.fsdp`` False runs tensor parallel through the
-attention, Mamba and MoE layers (``sharding/tp.py``).
+attention, Mamba and MoE layers (``sharding/tp.py``).  The train
+forward takes the reference's ``activation_hint`` at every layer
+boundary: the sequence split where the global batch leaves ``"model"``
+idle (``hybrid_apply``).
 """
 from __future__ import annotations
 
@@ -128,23 +131,25 @@ def _zero_state(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _mamba_layer(layer: HybridLayer, x: torch.Tensor, cfg: ModelConfig,
-                 h0: torch.Tensor, conv=None, *, backend: str):
+                 h0: torch.Tensor, conv=None, *, backend: str,
+                 sp: bool = False):
     """A Mamba layer from state (h0, conv; ``ssm.mamba_mix``), then its
     feed-forward: (x_out, aux loss, the block's new state)."""
     y, state = mamba_mix(layer.mamba, rmsnorm(layer.ln1, x), cfg, h0, conv,
-                         backend=backend)
+                         backend=backend, sp=sp)
     x = x + y
     m, aux = ffn(layer, rmsnorm(layer.ln2, x), cfg)
     return x + m, aux, state
 
 
 def _layer(layer: HybridLayer, x: torch.Tensor, cfg: ModelConfig,
-           backend: str):
-    """One layer of the full-sequence forward: (x_out, aux loss)."""
+           backend: str, sp: bool):
+    """One layer of the full-sequence forward: (x_out, aux loss); ``sp``:
+    x holds this rank's positions under the sequence split."""
     if hasattr(layer, "attn"):
-        return layer_apply(layer, x, cfg, backend=backend)
+        return layer_apply(layer, x, cfg, backend=backend, sp=sp)
     return _mamba_layer(layer, x, cfg, _zero_state(cfg, x),
-                        backend=backend)[:2]
+                        backend=backend, sp=sp)[:2]
 
 
 def hybrid_apply(params: HybridLM, batch: Dict[str, torch.Tensor],
@@ -158,13 +163,20 @@ def hybrid_apply(params: HybridLM, batch: Dict[str, torch.Tensor],
     the CUDA kernels have no backward and raise under autograd).
     ``remat`` rematerialises each layer, not each period, in the backward
     pass (``layers.remat_call``), as the reference does: a whole period's
-    chunked scans would stay live otherwise."""
+    chunked scans would stay live otherwise.  Under the sequence split
+    (``tp.sequence_parallel``) each rank runs and returns its S/m
+    positions of its rows: the attention layers gather K/V along S, the
+    Mamba layers pass the scan's state and the convolution's context
+    along the ranks, and the MoE layers route the rank's tokens."""
     _check_backend(backend)
-    x = embed(params.embed, batch["tokens"], cfg)
+    tokens = batch["tokens"]
+    sp = tp.sequence_parallel(cfg, tokens.shape[1])
+    x = embed(params.embed, tp.chunk(tokens, 1) if sp else tokens, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params.layers:
         x, a = remat_call(functools.partial(_layer, layer, cfg=cfg,
-                                            backend=backend), x, remat=remat)
+                                            backend=backend, sp=sp), x,
+                          remat=remat)
         aux = aux + a
     x = rmsnorm(params.final_norm, x)
     out = {"hidden": x, "aux_loss": aux / cfg.n_layers}

@@ -12,6 +12,7 @@ logits come out in float32 (see ``unembed``).
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import math
 from typing import Optional
@@ -161,10 +162,14 @@ def remat_call(fn, *args, remat: bool):
     only the layer's inputs and runs the layer again in the backward pass
     (the reference's ``jax.checkpoint`` of its scanned layer); otherwise,
     or with grad mode off, it is a plain call.  The layers draw no random
-    numbers, so no RNG state is stashed."""
+    numbers, so no RNG state is stashed.  The run again is in the context
+    of the call (``contextvars``): on the card the backward pass runs in
+    autograd's device thread, where the ambient mesh of ``use_mesh``
+    would otherwise be unset."""
     if remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False,
-                          preserve_rng_state=False)
+        ctx = contextvars.copy_context()
+        return checkpoint(lambda *a: ctx.run(fn, *a), *args,
+                          use_reentrant=False, preserve_rng_state=False)
     return fn(*args)
 
 

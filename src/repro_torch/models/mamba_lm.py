@@ -4,9 +4,12 @@ Port of ``src/repro/models/mamba_lm.py``.
 Mamba1 layers have no separate MLP: the block is the layer.  The
 reference scans over stacked [L, ...] layer params; the port keeps one
 ``SSMLayer`` per layer in an ``nn.ModuleList`` and loops over them (the
-reference's ``fsdp_params`` runs in ``ssm.mamba_mix``, its
-``activation_hint`` has no counterpart on the port's rank-local activations
-(its prefill constrains none), and its ``jax.checkpoint`` is ``remat``).
+reference's ``fsdp_params`` runs in ``ssm.mamba_mix`` and its
+``jax.checkpoint`` is ``remat``).  Its ``activation_hint`` at each layer
+boundary of the train forward is the sequence split of ``ssm_lm_apply``
+(``tp.sequence_parallel``: each rank runs its S/m positions, the scan's
+state and the convolution's context passed along the ranks,
+``ssm.mamba_mix``); its prefill constrains no activation.
 On a mesh the cache may hold the rank's shard (``cache_specs_tree``):
 prefill writes the state in that layout (``tp.to_cache``), and a decode
 step with ``cfg.fsdp`` False runs tensor parallel (``ssm.py``).
@@ -76,9 +79,9 @@ def ssm_lm_init(gen: torch.Generator, cfg: ModelConfig) -> SSMLM:
 
 
 def _layer(layer: SSMLayer, x: torch.Tensor, cfg: ModelConfig,
-           backend: str) -> torch.Tensor:
+           backend: str, sp: bool) -> torch.Tensor:
     return x + mamba_apply(layer.mamba, rmsnorm(layer.ln, x), cfg,
-                           backend=backend)
+                           backend=backend, sp=sp)
 
 
 def ssm_lm_apply(params: SSMLM, batch: Dict[str, torch.Tensor],
@@ -90,11 +93,15 @@ def ssm_lm_apply(params: SSMLM, batch: Dict[str, torch.Tensor],
     Differentiable through ``backend="chunked"`` (the reference's default
     and its training path; the CUDA scan has no backward and raises under
     autograd); ``remat`` rematerialises each layer in the backward pass
-    (``layers.remat_call``)."""
-    x = embed(params.embed, batch["tokens"], cfg)
+    (``layers.remat_call``).  Under the sequence split each rank runs
+    and returns its S/m positions of its rows."""
+    tokens = batch["tokens"]
+    sp = tp.sequence_parallel(cfg, tokens.shape[1])
+    x = embed(params.embed, tp.chunk(tokens, 1) if sp else tokens, cfg)
     for layer in params.layers:
         x = remat_call(functools.partial(_layer, layer, cfg=cfg,
-                                         backend=backend), x, remat=remat)
+                                         backend=backend, sp=sp), x,
+                       remat=remat)
     x = rmsnorm(params.final_norm, x)
     out = {"hidden": x,
            "aux_loss": torch.zeros((), dtype=torch.float32, device=x.device)}

@@ -9,7 +9,12 @@ reference, ``moe_apply`` takes the expert-parallel path (``moe_ep.py``:
 explicit all-to-alls over the mesh's ``"model"`` axis) whenever an
 ambient mesh and the batch allow it, and the dense path below otherwise;
 on a mesh the dense path all-gathers the expert banks first
-(``fsdp_params``), except under tensor parallelism (``cfg.fsdp`` False,
+(``fsdp_params``) and routes the rank's own tokens (its rows, or its
+positions of them under the sequence split) at a capacity from their
+count, where the reference's GSPMD takes one capacity from the global
+batch's (the two agree wherever neither drops a pair), with the aux loss
+over the global batch (``aux_loss(world=True)``); except under tensor
+parallelism (``cfg.fsdp`` False,
 the reference's "TP decode"): there every ``"model"`` rank holds the same
 tokens, routes all of them as one device does (the same capacity and the
 same drops), fills and multiplies only its own E/m experts' buffers, and
@@ -41,6 +46,7 @@ import torch
 from torch import nn
 
 from ..sharding import tp
+from ..sharding.mesh import current_mesh
 from ..sharding.rules import fsdp_params
 from .layers import ModelConfig, _param, silu
 
@@ -100,15 +106,28 @@ def top_k(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig):
 
 
 def aux_loss(probs: torch.Tensor, expert: torch.Tensor,
-             n_experts: int) -> torch.Tensor:
-    """Switch-style load balance: E * sum_e f_e * P_e."""
+             n_experts: int, *, world: bool = False) -> torch.Tensor:
+    """Switch-style load balance: E * sum_e f_e * P_e.  With ``world``
+    it is the whole global batch's, as the reference's dense path takes
+    it under GSPMD: every rank's per-expert probability sums and counts
+    are summed over the default group before the product (replicas
+    cancel in the ratios), and the gradient flows through this rank's
+    mean probabilities against the global f (``tp.valued``: the world
+    size times the rank's share, as ``train/loss.py`` takes it)."""
     flat_e = expert.reshape(-1)
     ones = torch.ones(flat_e.shape[0], dtype=torch.float32,
                       device=flat_e.device)
-    ce = torch.zeros(n_experts, dtype=torch.float32,
-                     device=flat_e.device).index_add_(0, flat_e, ones) \
-        / flat_e.shape[0]
-    return n_experts * torch.sum(probs.mean(dim=0) * ce)
+    counts = torch.zeros(n_experts, dtype=torch.float32,
+                         device=flat_e.device).index_add_(0, flat_e, ones)
+    if not world:
+        ce = counts / flat_e.shape[0]
+        return n_experts * torch.sum(probs.mean(dim=0) * ce)
+    import torch.distributed as dist
+    w = dist.get_world_size()
+    g = tp.world_sum(torch.cat([probs.sum(dim=0), counts]))
+    ce = g[n_experts:] / (flat_e.shape[0] * w)
+    value = n_experts * torch.sum(g[:n_experts] / (probs.shape[0] * w) * ce)
+    return tp.valued(n_experts * torch.sum(probs.mean(dim=0) * ce), value)
 
 
 def rank_by(dest: torch.Tensor, n_bins: int, cap: int):
@@ -127,20 +146,23 @@ def rank_by(dest: torch.Tensor, n_bins: int, cap: int):
     return dest * cap + torch.where(keep, rank, 0), keep
 
 
-def route(p: MoE, xt: torch.Tensor, cfg: ModelConfig, cap: int):
+def route(p: MoE, xt: torch.Tensor, cfg: ModelConfig, cap: int, *,
+          world: bool = False):
     """The router over xt [T, D]: (gate [T, k] float32, expert [T, k],
-    keep [T*k] bool, slot [T*k], aux loss float32 scalar); each pair's
-    slot is its rank within its expert in (token, choice) order."""
+    keep [T*k] bool, slot [T*k], aux loss float32 scalar, the global
+    batch's with ``world``); each pair's slot is its rank within its
+    expert in (token, choice) order."""
     probs, gate, expert = top_k(tp.local(p.router), xt, cfg)
     slot, keep = rank_by(expert.reshape(-1), cfg.n_experts, cap)
-    return gate, expert, keep, slot, aux_loss(probs, expert, cfg.n_experts)
+    return gate, expert, keep, slot, aux_loss(probs, expert, cfg.n_experts,
+                                              world=world)
 
 
 def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, D] -> (out [B, S, D] in x's dtype, aux loss float32)."""
     from .moe_ep import ep_applicable, moe_apply_ep
-    if ep_applicable(cfg, x):
+    if ep_applicable(cfg):
         return moe_apply_ep(p, x, cfg)
     p = fsdp_params(p, cfg)
     wi, wg, wo = (tp.local(w) for w in (p.wi, p.wg, p.wo))
@@ -149,7 +171,11 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig
     k = cfg.top_k
     cap = _capacity(t, cfg)
     xt = x.reshape(t, d)
-    gate, expert, keep, slot, aux = route(p, xt, cfg, cap)
+    # FSDP on a mesh: each rank routes its own tokens (its rows, or its
+    # positions of them under the sequence split) and the aux loss is the
+    # global batch's
+    gate, expert, keep, slot, aux = route(
+        p, xt, cfg, cap, world=cfg.fsdp and current_mesh() is not None)
 
     # this rank's experts [e0, e0 + e_loc): all of them but under TP
     e_loc = wi.shape[0]

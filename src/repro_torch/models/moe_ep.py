@@ -35,10 +35,11 @@ Requirements (``ep_applicable``): FSDP weights (``cfg.fsdp``: under
 tensor parallelism every ``"model"`` rank holds the same tokens, which EP
 would process m times; ``moe_apply``'s dense path splits the experts
 instead), an ambient mesh with a ``"model"`` axis of ``m > 1``,
-``E % m == 0``, and a global batch that divides the whole mesh.  With
-rank-local ``x`` that batch is ``x.shape[0] * mesh_chips``, which every
-rank's share divides by construction, so what is left to check is that
-the rank holds a token at all.
+``E % m == 0``, and a global batch that divides the whole mesh: the one
+``use_mesh(global_batch=)`` names (required on such a mesh), as the
+reference's rule reads it from its global ``x`` (so a batch that leaves
+"model" idle, replicated over it or with the sequence split over it,
+takes the dense path, as the reference's GSPMD does).
 ``moe_apply`` falls back to the dense path otherwise.  Called directly,
 ``moe_apply_ep`` also runs on a ``"model"`` axis of one.
 """
@@ -48,17 +49,24 @@ from typing import Tuple
 
 import torch
 
-from ..sharding.mesh import axis_sizes, current_mesh
+from ..sharding.mesh import (axis_sizes, current_global_batch,
+                             current_mesh, mesh_chips)
 from .layers import ModelConfig, silu
 from .moe import MoE, _expert_product, aux_loss, combine, rank_by, top_k
 
 
-def ep_applicable(cfg: ModelConfig, x: torch.Tensor) -> bool:
+def ep_applicable(cfg: ModelConfig) -> bool:
     mesh = current_mesh()
     if mesh is None or "model" not in axis_sizes(mesh) or not cfg.fsdp:
         return False
     m = axis_sizes(mesh)["model"]
-    return cfg.n_experts % m == 0 and m > 1 and x.shape[0] > 0
+    if cfg.n_experts % m or m == 1:
+        return False
+    n, chips = current_global_batch(), mesh_chips(mesh)
+    if n is None:
+        raise ValueError("a MoE layer on a mesh needs the global batch: "
+                         "use_mesh(mesh, global_batch=n)")
+    return n % chips == 0 and n >= chips
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,11 @@ by a float32 all-reduce.  The state keeps ``cache_specs_tree``'s stored
 layout (``h`` with N over ``"model"``, ``conv`` with Di): the scan needs
 the rank's channels with every N, so ``h`` is resharded by one
 all-to-all in and one out a step (``tp.state_in``/``tp.state_out``).
+
+Sequence parallel (a train forward whose global batch leaves ``"model"``
+idle, ``tp.sequence_parallel``): the rank runs its S/m positions; the
+convolution's left inputs and the scan's starting state come from the
+previous ranks by two all-gathers a layer (``mamba_mix``).
 """
 from __future__ import annotations
 
@@ -149,24 +154,47 @@ def _scan(dt, bmat, cmat, xc, a_neg, h0, backend: str):
 
 def mamba_mix(p: Mamba, x: torch.Tensor, cfg: ModelConfig, h0: torch.Tensor,
               conv_state: Optional[torch.Tensor] = None, *,
-              backend: str = "kernel") -> Tuple[torch.Tensor, State]:
+              backend: str = "kernel", sp: bool = False
+              ) -> Tuple[torch.Tensor, State]:
     """The block over x [B,S,D] from state (h0 [B,Di,N], conv_state
     [B,K-1,Di] or zeros when None) -> (y [B,S,D], the state after the last
     position: {"h", "conv"}, float32, new tensors).  On a mesh the
     block's weights are all-gathered at use (``fsdp_params``), or, with
     ``cfg.fsdp`` False, run tensor parallel on the rank's channels: the
     state then comes and goes in the cache's layout (the module
-    docstring)."""
+    docstring).
+
+    With ``sp`` x holds this rank's positions under the sequence split,
+    h0 is the state before position 0 of the whole sequence and the
+    conv state is zero there (``conv_state`` None): the convolution
+    takes its K-1 left inputs from the previous ranks (``tp.prev_rows``),
+    and the scan starts from the previous ranks' chunks composed onto h0
+    (``tp.prefix_state``): each
+    rank first scans its chunk from zero, which maps a state h_in to
+    exp(a_neg * sum_t dt_t) * h_in + H (H that scan's last state), then
+    scans again from the state the prefix gives it, so the split runs
+    the scan twice a layer.  The returned state is then the rank's own
+    last position's."""
     p = fsdp_params(p, cfg)
     xi = tp.column(x, p.in_x)                                    # [B,S,Di]
     z = tp.column(x, p.in_z)
     di = xi.shape[-1]
+    if sp:
+        if conv_state is not None:
+            raise ValueError("mamba_mix: the sequence split starts from a "
+                             "zero conv state")
+        conv_state = tp.prev_rows(xi, cfg.ssm_conv - 1)
     xc = silu(_causal_conv(xi, tp.local(p.conv_w), tp.local(p.conv_b),
                            conv_state))
     dt, bmat, cmat = _ssm_params(p, xc, cfg)
     h = tp.state_in(h0, di, cfg.ssm_state)
-    y, h_last = _scan(dt, bmat, cmat, xc, -torch.exp(tp.local(p.a_log)), h,
-                      backend)
+    a_neg = -torch.exp(tp.local(p.a_log))
+    if sp:
+        _, h_chunk = _scan(dt, bmat, cmat, xc, a_neg, torch.zeros_like(h),
+                           backend)
+        decay = torch.exp(dt.sum(dim=1)[..., None] * a_neg)     # [B,Di,N]
+        h = tp.prefix_state(decay, h_chunk, h)
+    y, h_last = _scan(dt, bmat, cmat, xc, a_neg, h, backend)
     y = y + xc.float() * tp.local(p.d_skip)
     y = (y * silu(z.float())).to(x.dtype)
     tail = xi if conv_state is None else torch.cat(
@@ -176,11 +204,12 @@ def mamba_mix(p: Mamba, x: torch.Tensor, cfg: ModelConfig, h0: torch.Tensor,
 
 
 def mamba_apply(p: Mamba, x: torch.Tensor, cfg: ModelConfig, *,
-                backend: str = "kernel") -> torch.Tensor:
-    """Full-sequence forward from a zero state. x [B,S,D] -> [B,S,D]."""
+                backend: str = "kernel", sp: bool = False) -> torch.Tensor:
+    """Full-sequence forward from a zero state. x [B,S,D] -> [B,S,D]
+    (``sp``: this rank's positions of it, ``mamba_mix``)."""
     h0 = torch.zeros((x.shape[0], cfg.d_inner, cfg.ssm_state),
                      dtype=torch.float32, device=x.device)
-    return mamba_mix(p, x, cfg, h0, backend=backend)[0]
+    return mamba_mix(p, x, cfg, h0, backend=backend, sp=sp)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,9 @@ False is Megatron tensor parallel over a cache laid out by
 leaves ``"model"`` idle (``tp.sequence_parallel``, the rule of the
 reference's ``activation_hint`` in its ``lm_prefill``) runs each rank's
 S/m positions with the weights gathered at use and K/V gathered along S
-once a layer.  Every other step gathers the weights at use (FSDP).
+once a layer, and so does ``lm_apply``, the train forward, by the same
+rule (its ``activation_hint`` at every layer boundary).  Every other
+step gathers the weights at use (FSDP).
 """
 from __future__ import annotations
 
@@ -163,14 +165,22 @@ def _inputs(params: nn.Module, batch: Dict[str, torch.Tensor],
 
 
 def layer_apply(p: Layer, x: torch.Tensor, cfg: ModelConfig, *,
-                backend: str = "chunked", pos3=None
+                backend: str = "chunked", pos3=None, sp: bool = False
                 ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
-    """Returns (x_out, aux loss)."""
+    """Returns (x_out, aux loss).  With ``sp`` x holds this rank's
+    positions under the sequence split (``pos3`` too): RoPE from its
+    first position, K/V all-gathered along S (with a gradient) and the
+    causal attention at that ``q_offset``, as the reference's
+    ``chunked_attention`` pins gathered K/V."""
     attn = fsdp_params(p.attn, cfg)
     h = rmsnorm(p.ln1, x)
     q, k, v = qkv_project(attn, h, cfg)
-    q, k = _rope(cfg, q, k, 0, pos3)
-    o = attn_mod.attention(q, k, v, causal=True, backend=backend)
+    start = tp.local_start(x.shape[1]) if sp else 0
+    q, k = _rope(cfg, q, k, start, pos3)
+    if sp:
+        k, v = tp.gather_seq(k), tp.gather_seq(v)
+    o = attn_mod.attention(q, k, v, causal=True, q_offset=start,
+                           backend=backend)
     x = x + out_project(attn, o)
     m, aux = ffn(p, rmsnorm(p.ln2, x), cfg)
     return x + m, aux
@@ -188,13 +198,19 @@ def lm_apply(params: DenseLM, batch: Dict[str, torch.Tensor],
     ``pos3``) -> ``hidden`` [B,S,D], ``aux_loss`` (the layers' sum over
     ``n_layers``; 0 for a dense model) and ``logits`` [B,S,V] float32.
     Differentiable; ``remat`` rematerialises each layer in the backward
-    pass (``layers.remat_call``)."""
+    pass (``layers.remat_call``).  Under the sequence split
+    (``tp.sequence_parallel``, the reference's ``activation_hint``) each
+    rank runs and returns its S/m positions of its rows."""
+    sp = tp.sequence_parallel(cfg, next(iter(batch.values())).shape[1])
+    if sp:
+        batch = {k: tp.chunk(v, 1) for k, v in batch.items()}
     x = _inputs(params, batch, cfg)
     pos3 = batch.get("pos3")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params.layers:
         x, a = remat_call(functools.partial(layer_apply, layer, cfg=cfg,
-                                            backend=backend, pos3=pos3),
+                                            backend=backend, pos3=pos3,
+                                            sp=sp),
                           x, remat=remat)
         aux = aux + a
     x = rmsnorm(params.final_norm, x)
@@ -290,10 +306,10 @@ def lm_prefill(params: DenseLM, batch: Dict[str, torch.Tensor],
     batch leaves, and the last position comes from the last rank."""
     s = next(iter(batch.values())).shape[1]
     sp = tp.sequence_parallel(cfg, s)
-    start = tp.seq_start(s) if sp else 0
     if sp:
         batch = {k: tp.chunk(v, 1) for k, v in batch.items()}
     x = _inputs(params, batch, cfg)
+    start = tp.local_start(x.shape[1]) if sp else 0
     pos3 = batch.get("pos3")
     for i, layer in enumerate(params.layers):
         x = _cached_layer(layer, cache["k"][i], cache["v"][i], x, cfg,

@@ -386,13 +386,29 @@ def replicate_hint(x: torch.Tensor) -> torch.Tensor:
     return t
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes its gradient contiguous."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
 def _all_gather_autograd(t, dim, group):
     """The differentiable functional all-gather along ``dim`` (its newer
-    name where this PyTorch has it)."""
+    name where this PyTorch has it).  Its backward reduce-scatters the
+    gradient of the gathered tensor, which NCCL takes only contiguous;
+    PyTorch 2.11's backward hands that gradient on as it arrives, and on
+    the card a train step's arrived non-contiguous ("Expected
+    input.is_contiguous()"), so it is made contiguous first."""
     import torch.distributed._functional_collectives as funcol
     f = getattr(funcol, "all_gather_single_autograd", None) or \
         funcol.all_gather_tensor_autograd
-    return f(t, dim, group)
+    return _ContiguousGrad.apply(f(t, dim, group))
 
 
 class _Gathered:

@@ -19,11 +19,15 @@ tensors: the arithmetic the reference's GSPMD derives from its spec trees
   attention splits Dh (``attention.decode_attention``) and the Mamba
   state is resharded to Di for the scan and back (``state_in``,
   ``state_out``).
-* **Sequence parallel (SP)**, a transformer-family prefill whose global
-  batch leaves ``"model"`` idle (``sequence_parallel``, the rule of the
-  reference's ``activation_hint``): each rank takes its S/m positions of
-  its batch rows, the weights are gathered at use as in FSDP, and K/V are
-  all-gathered along S once a layer (``gather_seq``).
+* **Sequence parallel (SP)**, a step whose global batch leaves
+  ``"model"`` idle (``sequence_parallel``, the rule of the reference's
+  ``activation_hint``): each rank takes its S/m positions of its batch
+  rows and the weights are gathered at use as in FSDP.  A transformer
+  family's prefill takes it, and every family's train forward: K/V are
+  all-gathered along S once an attention layer (``gather_seq``, whose
+  backward reduce-scatters their gradient), a Mamba block takes its
+  convolution's left context from the previous ranks (``prev_rows``) and
+  its scan's starting state from theirs (``prefix_state``).
 
 Every collective is a functional one over the ambient mesh's ``"model"``
 axis, so ``roofline/collectives.py::record_collectives`` sees it.
@@ -110,6 +114,32 @@ def all_gather(t: torch.Tensor, dim: int) -> torch.Tensor:
         funcol.all_gather_tensor          # its newer name where it has one
     return funcol.wait_tensor(f(t.contiguous(), dim % t.ndim,
                                 model_axis()[0]))
+
+
+def world_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over every rank of the default group, without a
+    gradient (the loss's and the MoE aux loss's global counts and
+    sums)."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    return funcol.wait_tensor(funcol.all_reduce(t.detach(), "sum",
+                                                dist.group.WORLD))
+
+
+class _Valued(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, share, value):
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def valued(share: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+    """``value`` (a global value, computed without a gradient) whose
+    gradient flows into ``share`` (this rank's term of it) unchanged."""
+    return _Valued.apply(share, value.detach())
 
 
 def all_to_all(t: torch.Tensor) -> torch.Tensor:
@@ -266,12 +296,14 @@ def state_out(h: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def sequence_parallel(cfg, seq_len: int) -> bool:
-    """Whether a prefill of ``seq_len`` positions runs with the sequence
+    """Whether a forward over ``seq_len`` positions runs with the sequence
     over ``"model"``, by the rule of the reference's ``activation_hint``:
     an ambient mesh with the step's global batch
     (``use_mesh(global_batch=)``), FSDP weights, a batch that goes over no
     ``"model"`` axis (``rules.batch_axes``) and a sequence that divides
-    it."""
+    it.  ``transformer.lm_prefill`` asks it of its prompt; every family's
+    train forward asks it of each stack's own sequence (whisper's encoder
+    of ``enc_seq``, its decoder of the tokens)."""
     from .rules import batch_axes
     ax = model_axis()
     n = current_global_batch()
@@ -280,15 +312,56 @@ def sequence_parallel(cfg, seq_len: int) -> bool:
     return MODEL not in batch_axes(n, current_mesh()) and seq_len % ax[2] == 0
 
 
-def seq_start(seq_len: int) -> int:
-    """The first position this rank holds under the sequence split."""
-    _, r, m = model_axis()
-    return r * (seq_len // m)
+def local_start(n_local: int) -> int:
+    """The first position of this rank's ``n_local`` under the split."""
+    return model_axis()[1] * n_local
+
+
+def gather_grad(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``all_gather(t, dim)`` with a gradient: its backward reduce-scatters
+    the gathered tensor's gradient over ``"model"`` (a functional
+    collective too, so ``record_collectives`` sees both directions)."""
+    from .rules import _all_gather_autograd
+    return _all_gather_autograd(t.contiguous(), dim % t.ndim,
+                                model_axis()[0])
 
 
 def gather_seq(t: torch.Tensor) -> torch.Tensor:
-    """[B, S/m, ...] of every rank as [B, S, ...] (K/V, once a layer)."""
-    return all_gather(t, 1)
+    """[B, S/m, ...] of every rank as [B, S, ...] (K/V, once a layer),
+    with a gradient."""
+    return gather_grad(t, 1)
+
+
+def prev_rows(t: torch.Tensor, n: int) -> torch.Tensor:
+    """The ``n`` positions before this rank's first under the split, from
+    the previous ranks' ``t`` [B, S/m, ...] (zeros before position 0):
+    the convolution's left context.  One all-gather of every rank's last
+    L = min(n, S/m) rows, with a gradient.  Every rank runs the same ops
+    on the gathered rows (only the offset it reads differs), so every
+    rank's backward issues the same collectives in the same order."""
+    _, r, _ = model_axis()
+    tail = min(n, t.shape[1])
+    g = gather_grad(t[:, t.shape[1] - tail:][None], 0)  # [m, B, L, ...]
+    rows = torch.cat([t.new_zeros((t.shape[0], n, *t.shape[2:])),
+                      g.movedim(0, 1).flatten(1, 2)], 1)  # [B, n + m L]
+    return rows.narrow(1, r * tail, n)
+
+
+def prefix_state(decay: torch.Tensor, h: torch.Tensor,
+                 h0: torch.Tensor) -> torch.Tensor:
+    """The state entering this rank's positions of a linear recurrence
+    whose rank-j chunk maps a state ``s`` to ``decay_j * s + h_j``
+    (``decay``, ``h``: this rank's, [B, ...]) from ``h0`` before position
+    0: the previous ranks' chunks composed in order.  One all-gather of
+    every rank's (decay, h), with a gradient; every rank composes all
+    m - 1 prefixes and takes its own, so that the ranks' graphs, and
+    their backward collectives, are the same."""
+    _, r, m = model_axis()
+    g = gather_grad(torch.stack([decay, h])[None], 0)     # [m, 2, B, ...]
+    states = [h0]
+    for j in range(m - 1):
+        states.append(g[j, 0] * states[-1] + g[j, 1])
+    return torch.stack(states)[r]
 
 
 def from_last_rank(t: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,9 @@ rows stacked, as the moments are):
   1. the gradient goes to the moments' layout: DTensor's redistribution
      from ``Partial`` reduce-scatters it over the data axes (an
      all-reduce over an axis the moments replicate), and it is divided
-     by the world size (every rank's loss is a mean over its own rows);
+     by the world size: the mean of the ranks' gradients, each rank's
+     gradient being the world size times its share of the global loss's
+     (``loss.lm_loss(replicas=)``), whatever the layout;
   2. the global norm: every rank's squares, divided by the number of
      ranks holding the same piece, all-reduced over the world;
   3. ``optim._adamw`` on the rank's pieces of the parameter, moments and

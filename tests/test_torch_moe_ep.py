@@ -223,21 +223,25 @@ def test_ep_padding_takes_no_capacity(ep_run):
 
 def test_ep_not_applicable():
     """No mesh; a "model" axis of 1; experts that do not divide it; a
-    mesh without "model"; an empty batch (which does not divide the
-    mesh).  Shape-only stand-ins: ``ep_applicable`` reads names and
-    sizes."""
+    mesh without "model"; a global batch that does not divide the mesh
+    (none at all, or 4 rows on 8 chips); and on a mesh where the rest
+    holds, no global batch is refused.  Shape-only stand-ins:
+    ``ep_applicable`` reads names and sizes."""
     cfg = get_smoke_config(ARCH)           # 8 experts
-    x = torch.zeros(1, 4, cfg.d_model)
 
     def mesh(**sizes):
         return types.SimpleNamespace(axis_names=tuple(sizes),
                                      axis_sizes=tuple(sizes.values()))
-    assert not ep_applicable(cfg, x)
+    assert not ep_applicable(cfg)
     for m, want in ((mesh(data=2, model=4), True),
                     (mesh(data=8, model=1), False),
                     (mesh(data=1, model=3), False),
                     (mesh(data=8), False)):
-        with use_mesh(m):
-            assert ep_applicable(cfg, x) is want, m
+        with use_mesh(m, global_batch=8):
+            assert ep_applicable(cfg) is want, m
+    for n in (0, 4):
+        with use_mesh(mesh(data=2, model=4), global_batch=n):
+            assert not ep_applicable(cfg)
     with use_mesh(mesh(data=2, model=4)):
-        assert not ep_applicable(cfg, x[:0])
+        with pytest.raises(ValueError, match="global batch"):
+            ep_applicable(cfg)

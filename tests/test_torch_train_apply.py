@@ -153,3 +153,30 @@ def test_plain_versions_stay_differentiable_on_the_cpu():
     assert fa_ops.flash_attention(q, q, q).grad_fn is not None
     y, h = scan_ops.selective_scan_fused(**_scan_inputs(True))
     assert y.grad_fn is not None and h.grad_fn is not None
+
+
+def test_remat_runs_again_under_the_callers_mesh():
+    """``remat_call``'s run in the backward pass sees the ambient mesh of
+    ``use_mesh`` even where autograd runs the backward in a thread of its
+    own, as it does on the card: a context variable does not reach that
+    thread, and the layer's weights would go ungathered (DTensors meeting
+    tensors) there."""
+    import threading
+
+    from repro_torch.models.layers import remat_call
+    from repro_torch.sharding.mesh import current_mesh, use_mesh
+    seen = []
+
+    def layer(x):
+        seen.append(current_mesh())
+        return x * x
+    x = torch.ones(3, requires_grad=True)
+    mesh = object()
+    with use_mesh(mesh):
+        y = remat_call(layer, x, remat=True)
+    t = threading.Thread(target=lambda: y.sum().backward())
+    t.start()
+    t.join(timeout=30)
+    assert not t.is_alive()
+    assert seen == [mesh, mesh]
+    assert torch.equal(x.grad, torch.full((3,), 2.0))

@@ -95,8 +95,9 @@ def moe_ep(rank: int, world: int, workdir: str) -> dict:
         x = torch.from_numpy(arrays[f"{name}/x"]).to(dt)
         x = x[local_slices(x.shape, P(("data", "model"), None, None),
                            mesh)].clone()
-        with use_mesh(mesh), record_collectives() as recs:
-            assert ep_applicable(cfg, x)
+        with use_mesh(mesh, global_batch=x.shape[0] * world), \
+                record_collectives() as recs:
+            assert ep_applicable(cfg)
             y, aux = moe_apply(p, x, cfg)
             loss = torch.sum(y.float() ** 2) + aux / world
             loss.backward()
@@ -204,8 +205,9 @@ def zero_step(rank: int, world: int, workdir: str) -> dict:
     """One AdamW train step of qwen3-4b's smoke model in float32 on a
     (2, 4) ("data", "model") mesh, the dry run's layout run for real:
     parameters restored as DTensors from ``workdir/init``, ZeRO moments,
-    this rank's row of the batch in ``step_in.npz``; the updated model
-    is saved from the mesh to ``workdir/after``."""
+    this rank's row of the batch in ``step_in.npz`` (its global batch of
+    8 named to ``use_mesh``); the updated model is saved from the mesh to
+    ``workdir/after``."""
     import dataclasses
     import functools
 
@@ -236,7 +238,7 @@ def zero_step(rank: int, world: int, workdir: str) -> dict:
              for k, v in batch.items()}
     step = make_train_step(api, ocfg, update=functools.partial(
         zero.update, pspecs=pspecs, mesh=mesh))
-    with use_mesh(mesh), record_collectives() as recs:
+    with use_mesh(mesh, global_batch=8), record_collectives() as recs:
         model, opt, met = step(model, opt, batch)
     ckpt.save(os.path.join(workdir, "after"), 1, model)
     return {"loss": met["loss"].numpy(), "grad_norm": met["grad_norm"].numpy(),
@@ -340,13 +342,117 @@ def layouts(rank: int, world: int, workdir: str) -> dict:
     return out
 
 
+def sp_train(rank: int, world: int, workdir: str) -> dict:
+    """One float32 AdamW step of each case of ``sp_train.json`` on a (2, 4)
+    ("data", "model") mesh: its smoke config's weights restored from
+    ``workdir/<arch>`` as DTensors, ZeRO moments, the batch of
+    ``sp_train_in.npz`` placed by ``batch_specs`` under ``use_mesh(mesh,
+    global_batch=B)`` (a B that leaves "model" idle splits the sequence
+    when S divides 4), in ``microbatch``'s number of microbatches.  Every
+    rank returns its metrics, the shape of its (first) logits and its
+    collectives' kinds; rank 0 also each parameter's whole
+    gradient (the mean over the ranks, as ``zero.update`` takes it) and
+    its value after the step.  Then the first MoE layer of
+    ``moe_layer``'s arch on this rank's positions of ``moe_layer/x``
+    under the split, at each of its capacity factors: its output and aux
+    loss."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh, use_mesh
+    from repro_torch.models import get_model
+    from repro_torch.roofline.collectives import record_collectives
+    from repro_torch.sharding import rules
+    from repro_torch.train import AdamWConfig, make_train_step, zero
+
+    mesh = make_mesh((2, 4), ("data", "model"), "cpu")
+    with open(os.path.join(workdir, "sp_train.json")) as f:
+        spec = json.load(f)
+    with np.load(os.path.join(workdir, "sp_train_in.npz")) as z:
+        arrays = {k: torch.from_numpy(v) for k, v in z.items()}
+    out = {}
+    for case, arch in spec["cases"].items():
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32,
+                                  capacity_factor=spec["capacity_factor"])
+        api = get_model(cfg)
+        model = api.init(0, device="cpu")
+        pspecs = rules.param_specs(model, mesh)
+        model, _ = ckpt.restore(os.path.join(workdir, arch), model,
+                                shardings=rules.named(mesh, pspecs))
+        ocfg = AdamWConfig(**spec["opt"])
+        opt = zero.moments(ocfg, model, rules.opt_state_specs(model, mesh),
+                           mesh)
+        batch = {k.split("/")[-1]: v for k, v in arrays.items()
+                 if k.startswith(case + "/")}
+        b = batch["labels"].shape[0]
+        batch = _tree_local(batch, rules.batch_specs(batch, mesh), mesh)
+        grads, shapes = {}, []
+
+        def update(c, g, state, params):
+            grads.update(g)
+            return zero.update(c, g, state, params, pspecs=pspecs,
+                               mesh=mesh)
+
+        def apply(*a, **kw):
+            res = api.apply(*a, **kw)
+            shapes.append(tuple(res["logits"].shape))
+            return res
+        step = make_train_step(dataclasses.replace(api, apply=apply), ocfg,
+                               update=update,
+                               microbatch=spec["microbatch"].get(case, 0))
+        with use_mesh(mesh, global_batch=b), record_collectives() as recs:
+            model, opt, met = step(model, opt, batch)
+        for k, v in met.items():
+            out[f"{case}/met/{k}"] = v.numpy()
+        out[f"{case}/logits_shape"] = np.array(shapes[0])
+        out[f"{case}/kinds"] = np.array(sorted({r.kind for r in recs}))
+        for name, p in model.named_parameters():
+            g = grads[name]
+            g = DTensor.from_local(
+                g.to_local(), mesh,
+                [pl if isinstance(pl, Shard) else Partial()
+                 for pl in g.placements], run_check=False, shape=g.shape,
+                stride=g.stride()).full_tensor() / world
+            w = p.detach().full_tensor()
+            if rank == 0:
+                out[f"{case}/grad/{name}"] = g.numpy()
+                out[f"{case}/param/{name}"] = w.numpy()
+    # the first MoE layer of spec["moe_layer"]["arch"] under the split, at
+    # each capacity factor: this rank's output and aux on its positions
+    # of its row of moe_layer/x
+    from repro_torch.models.moe import moe_apply
+    arch = spec["moe_layer"]["arch"]
+    x = arrays["moe_layer/x"]
+    d_row, r = mesh.get_coordinate()
+    n = x.shape[1] // mesh.shape[1]
+    x = x[d_row:d_row + 1, r * n:(r + 1) * n]
+    for cf in spec["moe_layer"]["capacity_factors"]:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32,
+                                  capacity_factor=cf)
+        model = get_model(cfg).init(0, device="cpu")
+        model, _ = ckpt.restore(os.path.join(workdir, arch), model,
+                                shardings=rules.named(
+                                    mesh, rules.param_specs(model, mesh)))
+        with torch.no_grad(), use_mesh(mesh, global_batch=2):
+            y, aux = moe_apply(model.layers[0].moe, x, cfg)
+        out[f"moe_layer/{cf}/out"] = y.numpy()
+        out[f"moe_layer/{cf}/aux"] = aux.numpy()
+    out["coord"] = np.array(mesh.get_coordinate())
+    return out
+
+
 def rules_leaf_map(model):
     from repro_torch.models.weights import leaf_map
     return leaf_map(model, model.cfg)
 
 
 PROGRAMS = {"moe_ep": moe_ep, "fleet_ckpt": fleet_ckpt,
-            "zero_step": zero_step, "layouts": layouts}
+            "zero_step": zero_step, "layouts": layouts,
+            "sp_train": sp_train}
 
 
 def main(argv) -> int:
