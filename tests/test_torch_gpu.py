@@ -616,6 +616,44 @@ def test_moe_apply_on_cuda_equals_cpu_without_a_sync(cuda, dtype):
     torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-6, atol=0)
 
 
+def _moe_f32_probe():
+    """``tools/torch_moe_f32_probe.py`` as a module."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / \
+        "torch_moe_f32_probe.py"
+    spec = importlib.util.spec_from_file_location("torch_moe_f32_probe",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_moe_float32_ops_round_as_float32_on_card(cuda):
+    """The float32 layer of the test above, op by op
+    (``tools/torch_moe_f32_probe.py``), with TF32 off as that test sets
+    it: the router product, the three expert products and the SiLU gate
+    on the card each within float32 rounding of float64 (K 2**-24 of the
+    largest value) and the same bits on every repeat; the whole layer
+    within 1e-6 of the CPU's and the same bits on every repeat; and the
+    CPU side (the test's ``want``) within the same rounding.  A setting
+    left by another test in the session would show here too: the matmul
+    precision switches read IEEE on the card and no reduced precision on
+    the CPU's oneDNN."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rep = _moe_f32_probe().probe("default", 3)
+    st = rep["settings"]
+    assert st["cuda.matmul.fp32_precision"] == "ieee", st
+    assert st.get("mkldnn.matmul.fp32_precision", "none") in (
+        "none", "ieee"), st
+    for name, op in rep["ops"].items():
+        assert op["repeat_bitwise"], name
+        assert op["card_err"] <= op["f32_bound"], (name, op)
+        assert op["cpu_err"] <= op["f32_bound"], (name, op)
+    assert max(rep["layer_card_vs_cpu"]) <= 1e-6, rep["layer_card_vs_cpu"]
+    assert len(set(rep["layer_card_vs_cpu"])) == 1, rep["layer_card_vs_cpu"]
+
+
 def _loop_tokens(api, params, cuda, backend, prompts):
     loop = ServeLoop(api, params, slots=2, max_len=96, bucket=32,
                      backend=backend, device=cuda)
